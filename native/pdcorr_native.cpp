@@ -1,6 +1,6 @@
-// Native runtime components for the TPU PD-corrosion framework.
+// Native runtime components for the JAX PD-corrosion framework.
 //
-// The TPU compute path is JAX/XLA; these C++ pieces cover the host-side
+// The device compute path is JAX/XLA; these C++ pieces cover the host-side
 // runtime where the reference is also native C++ (SURVEY §2: C++ everywhere):
 //
 //  1. fmt_doubles / fmt_vec3 — fast "%.9g"-per-line ASCII serialization for

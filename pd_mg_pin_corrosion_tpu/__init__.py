@@ -1,12 +1,13 @@
-"""TPU-native peridynamic Mg-pin corrosion framework.
+"""Peridynamic Mg-pin corrosion framework in JAX.
 
 A from-scratch JAX/XLA rebuild of the capabilities of
-``alhermann/pd-mg-pin-corrosion`` (C++17/OpenMP), redesigned TPU-first:
+``alhermann/pd-mg-pin-corrosion`` (C++17/OpenMP), redesigned for an
+accelerator:
 dense stencil-shift bond kernels instead of CSR neighbor loops, functional
 state instead of double buffers, ``lax.while_loop`` steady solves, a
 matrix-free GMRES implicit transport solver, device-side phase-change
 remasking instead of neighbor-list rebuilds, and ``jax.sharding`` domain
-decomposition for multi-chip scale-out.
+decomposition for multi-device scale-out.
 """
 
 from .config import Config

@@ -5,7 +5,7 @@ Host-side rewrite of Grid::build_amr + build_neighbors_celllist
 (src/grid.cpp:296-808). Differences from the structured path (grid.py):
 node arrays are flat [N] (unstructured), and the neighbor structure is a
 fixed-degree padded array [N, K] (index/dist/evec/volume with a validity
-implied by vol > 0) built by a cell-list radius search — the TPU-native
+implied by vol > 0) built by a cell-list radius search — the dense-array
 replacement for the reference's CSR rows, consumed by gather-based kernels
 in unstructured.py.
 

@@ -2,8 +2,8 @@
 
 The reference's AMR machinery (src/grid.cpp:296-808) produces an
 unstructured node cloud, which round 1-2 consumed through gather-based
-kernels (amr.py / unstructured.py) — ~10x the cost of stencil shifts on
-TPU. But both AMR levels are themselves REGULAR lattices (fine nodes at dx
+kernels (amr.py / unstructured.py) — many times the cost of stencil
+shifts. But both AMR levels are themselves REGULAR lattices (fine nodes at dx
 inside a rectangular zone around the wire, coarse nodes at amr_ratio*dx
 elsewhere), and the reference restricts bonds to same-level pairs
 (grid.cpp:732-739). So the whole simulation decomposes into
@@ -580,8 +580,8 @@ def ard_compute_dt(state: State, kit: BKit):
 
 
 def ard_step(state: State, kit: BKit, dt, volume_loss_fraction=0.0) -> State:
-    from .pallas_kernels import ard_step_auto
-    return _per_block(ard_step_auto, ard_step_auto)(
+    from .ops.ard import ard_step as ard_step_xla
+    return _per_block(ard_step_xla, ard_step_xla)(
         state, kit, dt, volume_loss_fraction)
 
 
@@ -674,8 +674,6 @@ def implicit_step(state: State, op: ImplicitOperatorB, kit: BKit, dt,
         return y
 
     from .ops.gmres import gmres
-    from .pallas_kernels import gmres_basis_ok
-    flat = gmres_basis_ok(kit, C_old.size)
 
     b = jnp.where(op.fict, 0.0, C_old)
     # optional Krylov-saving initial guess (see ops/ard_implicit): clamped
@@ -683,7 +681,7 @@ def implicit_step(state: State, op: ImplicitOperatorB, kit: BKit, dt,
     x0 = C_old if x0 is None else jnp.where(
         op.unknown, jnp.clip(x0, 0.0, cfg.C_solid_init), C_old)
     x, (res, _cycles) = gmres(A, b, x0, tol=inner_tol, restart=restart,
-                              maxiter=maxiter, M=precond, flat_kernels=flat)
+                              maxiter=maxiter, M=precond)
 
     if refine:
         f64 = jnp.float64
@@ -708,7 +706,7 @@ def implicit_step(state: State, op: ImplicitOperatorB, kit: BKit, dt,
                              1e-4, 0.5)
             e, _ = gmres(A, r64.astype(kit.jdtype), jnp.zeros_like(x),
                          tol=tol_c, restart=restart, maxiter=restart * 2,
-                         M=precond, flat_kernels=flat)
+                         M=precond)
             x64n = x64 + e.astype(f64)
             r64n = b64 - A64(x64n)
             resn = jnp.linalg.norm(r64n.ravel()) / b_norm

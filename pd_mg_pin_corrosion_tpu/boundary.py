@@ -1,6 +1,6 @@
 """Boundary conditions as pure masked-array updates.
 
-TPU-native rewrite of the reference's 8 free functions (src/boundary.cpp).
+Dense-array rewrite of the reference's 8 free functions (src/boundary.cpp).
 Neighbor averages ("extrapolate from fluid neighbors") become stencil-shift
 sums with dynamic node-type masks; the FNM wall mirror uses the static
 mirror-index table precomputed in grid.py.
@@ -210,8 +210,8 @@ def _wall_mirror(state: State, kit: Kit, rho, vel):
 
     Every wall node's mirror source is a nearby lattice node, so the
     "gather" is a handful of jnp.roll's with per-offset masks (precomputed
-    in build_kit) — a full-array gather costs ~10x an entire NS step on
-    TPU. Roll wrap-around never matters: the masks only select wall nodes
+    in build_kit) instead of a full-array gather. Roll wrap-around never
+    matters: the masks only select wall nodes
     whose true source is in-domain.
     """
     cfg = kit.cfg
@@ -221,14 +221,14 @@ def _wall_mirror(state: State, kit: Kit, rho, vel):
     vel_out = jnp.where(kit.mirror_none_mask[..., None], 0.0, vel)
 
     if kit.dim == 3:
-        # One-hot MXU matmuls over the cross-section, batched over the
+        # One-hot matmuls over the cross-section, batched over the
         # (sharded) z axis: the mirror map is z-invariant by construction
         # (grid._build_mirror_table, 3D branch), so
         #   mirrored = (A @ G) @ S,  out = A*(1-colmask) +- mirrored.
         # The 2D roll scheme would need ~180 offset groups here (~360
-        # full-array rolls per call), and XLA gather/scatter over the
-        # cross-section at 1M+ nodes crashes the TPU runtime inside device
-        # loops — the matmul form uses neither.
+        # full-array rolls per call); the matmul form needs no rolls and
+        # no gather/scatter. (A gather over the kit.wm_* indices is the
+        # cheaper form on a GPU: ROADMAP speed item on the wall mirror.)
         Nz = kit.shape[0]
         XS = kit.shape[1] * kit.shape[2]
         r2 = rho.reshape(Nz, XS)
@@ -238,9 +238,9 @@ def _wall_mirror(state: State, kit: Kit, rho, vel):
 
         A = jnp.concatenate(
             [r2] + [v2[..., d] for d in range(kit.dim)], axis=0)
-        # HIGHEST precision: the MXU's default bf16-pass f32 matmul rounds
-        # the selected values (~5e-4 rel, caught by validate_3d_tpu.py);
-        # a one-hot selection must be exact
+        # HIGHEST precision: a default-precision f32 matmul may round its
+        # operands (bf16 passes or TF32, ~1e-3 rel); a one-hot selection
+        # must be exact
         hp = jax.lax.Precision.HIGHEST
         mirrored = jnp.matmul(jnp.matmul(A, kit.wm_G, precision=hp),
                               kit.wm_S, precision=hp)  # [ (1+dim)*Nz, XS ]

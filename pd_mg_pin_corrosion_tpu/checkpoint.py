@@ -134,7 +134,7 @@ def load_checkpoint(path: str, template: State, fp: str = "",
                     f"{fp[:12]}…); refusing to resume.\n"
                     f"  Differing config keys:\n{diff}")
             print(f"WARNING: resuming {path} despite config fingerprint "
-                  f"mismatch (PD_TPU_RESUME_FORCE). Differing keys:\n{diff}")
+                  f"mismatch (PD_RESUME_FORCE). Differing keys:\n{diff}")
         kwargs = {}
         for f in dataclasses.fields(State):
             ref = getattr(template, f.name)

@@ -18,7 +18,7 @@ import time
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
 
-    print("=== Peridynamic Mg-Pin Corrosion Simulation (TPU-native) ===")
+    print("=== Peridynamic Mg-Pin Corrosion Simulation (JAX) ===")
 
     from .config import Config
     cfg_path = "config/params.cfg"
@@ -47,17 +47,12 @@ def main(argv=None) -> int:
 
     # persistent compilation cache: the big solve graphs (steady-flow
     # while_loop, GMRES) take minutes to compile; cache them across runs
-    cache_dir = os.environ.get("PD_TPU_CACHE", os.path.expanduser("~/.pd_tpu_jit_cache"))
-    if cache_dir:
-        try:
-            jax.config.update("jax_compilation_cache_dir", cache_dir)
-            jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
-        except Exception:
-            pass
+    from .utils import setup_compile_cache
+    setup_compile_cache()
 
-    # profiling hook (tracing subsystem): PD_TPU_PROFILE=<dir> captures a
+    # profiling hook (tracing subsystem): PD_PROFILE=<dir> captures a
     # jax.profiler trace of the whole run for xprof/tensorboard
-    profile_dir = os.environ.get("PD_TPU_PROFILE", "")
+    profile_dir = os.environ.get("PD_PROFILE", "")
     if profile_dir:
         jax.profiler.start_trace(profile_dir)
         import atexit

@@ -50,7 +50,7 @@ def ops_for(kit) -> SimpleNamespace:
         from .ops import ard_implicit as ai
         from .ops import ns as ns
 
-        from .pallas_kernels import ard_step_auto, ns_step_auto
+        from .pallas_kernels import ns_step_auto
 
         return SimpleNamespace(
             ns_step=ns_step_auto,
@@ -63,7 +63,7 @@ def ops_for(kit) -> SimpleNamespace:
             apply_solid_surface_bc=bc.apply_solid_surface_bc,
             smooth_boundary_concentration=bc.smooth_boundary_concentration,
             update_fictitious=lambda state, kit: state,  # no AMR coupling
-            ard_step=ard_step_auto,
+            ard_step=ard.ard_step,
             ard_compute_dt=ard.compute_dt,
             apply_phase_change=ard.apply_phase_change,
             assemble=ai.assemble,

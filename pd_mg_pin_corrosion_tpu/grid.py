@@ -1,6 +1,6 @@
 """Structured uniform grid: node classification, PD stencil, wall mirrors.
 
-TPU-first redesign of the reference's Grid (src/grid.cpp:29-294). The key
+Dense-array redesign of the reference's Grid (src/grid.cpp:29-294). The key
 departure from the reference CSR neighbor list: on a uniform lattice every
 node shares the *same* offset stencil (the reference computes it once at
 src/grid.cpp:160-188 and then materializes per-node CSR rows). We never

@@ -1,6 +1,6 @@
 """Explicit PD advection-reaction-diffusion transport (bi-material bonds).
 
-TPU-native rewrite of PD_ARD_Solver (src/pd_ard.cpp). Bond classification
+Dense-array rewrite of PD_ARD_Solver (src/pd_ard.cpp). Bond classification
 (liquid-liquid / interface / solid-solid-skip), the salt-layer blocking mask,
 volume-loss micro-diffusivity decay, artificial diffusion, and non-
 conservative advection all become stencil-shift masked sums. Phase change is

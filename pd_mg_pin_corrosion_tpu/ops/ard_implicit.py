@@ -1,6 +1,6 @@
 """Implicit (backward-Euler) bi-material PD transport — matrix-free GMRES.
 
-TPU-native rewrite of PD_ARD_ImplicitSolver (src/pd_ard_implicit.cpp). The
+Dense-array rewrite of PD_ARD_ImplicitSolver (src/pd_ard_implicit.cpp). The
 reference assembles an Eigen sparse matrix once per coupling cycle and
 solves (I - dt*M) C_new = C_old + dt*bc_rhs with GMRES + IncompleteLUT.
 Here M is never assembled: its action is a stencil application with per-slot
@@ -15,16 +15,15 @@ Two structural simplifications with identical algebra:
   identity rows with b = their current C. Eliminating those rows recovers
   exactly the reference's dt*bc_rhs split (pd_ard_implicit.cpp:296-343,
   352-362) — same solution, no scatter/gather.
-* ILU -> Jacobi preconditioning: IncompleteLUT is inherently sequential and
-  TPU-hostile. A = I - dt*M is strictly diagonally dominant with
-  non-positive off-diagonals (the stated purpose of the upwind clamp), so
-  diagonal preconditioning converges robustly.
+* ILU -> Jacobi preconditioning: IncompleteLUT is inherently sequential,
+  a poor fit for a data-parallel device. A = I - dt*M is strictly
+  diagonally dominant with non-positive off-diagonals (the stated purpose
+  of the upwind clamp), so diagonal preconditioning converges robustly.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -43,19 +42,6 @@ class ImplicitOperator:
     W: jax.Array        # [S, *shape] off-diagonal stencil weights (C_j coeffs)
     diag: jax.Array     # [*shape] diagonal of M
     unknown: jax.Array  # [*shape] bool — FLUID | SOLID rows
-    # 3D TPU fast path: W in the flattened-cross-section lane layout
-    # ([S_pad, nzb, Fr], see pallas_kernels._geometry_3d), precomputed ONCE
-    # per assemble so the per-matvec cost is one streamed pass over the
-    # weights. None when the Pallas 3D matvec is not applicable.
-    Wf: jax.Array | None = None
-    # diag/unknown in the (nzb, Fr) center layout, precomputed alongside Wf
-    # so chained matvecs (GMRES) skip the per-call layout conversion
-    diag_f: jax.Array | None = None
-    unk_f: jax.Array | None = None
-    # bf16 copy of Wf for preconditioner matvecs only (halves the dominant
-    # HBM stream; a right preconditioner's accuracy affects convergence
-    # speed, never the converged answer)
-    Wf16: jax.Array | None = None
 
 
 def assemble(state: State, kit: Kit, volume_loss_fraction=0.0) -> ImplicitOperator:
@@ -150,47 +136,18 @@ def assemble(state: State, kit: Kit, volume_loss_fraction=0.0) -> ImplicitOperat
             Ws.append(w)
         W = jnp.stack(Ws)
 
-    # 3D TPU fast path: pre-flatten the weight stack for the streamed
-    # Pallas matvec, once per cycle (per-matvec flattening of ~750MB would
-    # dominate the matvec itself)
-    from ..pallas_kernels import (flat3d_center, flatten_W_3d,
-                                  matvec3d_applicable)
-    if matvec3d_applicable(kit):
-        Wf = flatten_W_3d(W, kit)
-        diag_f = flat3d_center(kit, diag.astype(jnp.float32))
-        unk_f = flat3d_center(kit, unknown, False)
-        Wf16 = Wf.astype(jnp.bfloat16)
-    else:
-        Wf = diag_f = unk_f = Wf16 = None
-
-    op = ImplicitOperator(W=W, diag=diag, unknown=unknown, Wf=Wf,
-                          diag_f=diag_f, unk_f=unk_f, Wf16=Wf16)
-    if Wf is None and kit.dim == 3:
-        # TPU mesh: the same pre-flatten, per shard (shard_map), so the
-        # sharded Pallas matvec streams local weight blocks directly
-        from ..parallel.shard_kernels import (finalize_op_sharded,
-                                              sharded_matvec_applicable)
-        if sharded_matvec_applicable(kit):
-            op = finalize_op_sharded(op, kit)
-    return op
+    return ImplicitOperator(W=W, diag=diag, unknown=unknown)
 
 
 def matvec_M(op: ImplicitOperator, kit: Kit, x: jax.Array) -> jax.Array:
     """y = M x over unknown rows (zero elsewhere).
 
-    Dispatches to the fused Pallas stencil-matvec on 2D f32 TPU grids
-    (pallas_kernels.matvec_M_pallas) — this is GMRES's hot op, applied
-    50-200x per implicit transport step."""
-    from ..pallas_kernels import (matvec3d_applicable, matvec_applicable,
-                                  matvec_M_pallas, matvec_M_pallas_3d)
-    if matvec_applicable(kit):
-        return matvec_M_pallas(op, kit, x)
-    if op.Wf is not None and matvec3d_applicable(kit):
-        return matvec_M_pallas_3d(op, kit, x)
-    from ..parallel.shard_kernels import (matvec_M_sharded,
-                                          sharded_matvec_applicable)
-    if sharded_matvec_applicable(kit) and (kit.dim == 2 or op.Wf is not None):
-        return matvec_M_sharded(op, kit, x)
+    GMRES's hot op, applied tens of times per implicit transport step. 3D
+    float32 kits on a GPU take the Triton kernel
+    (pallas_kernels.matvec_triton); everything else the XLA stencil sum."""
+    from ..pallas_kernels import matvec_triton, use_kernels
+    if use_kernels(kit) and x.dtype == jnp.float32:
+        return matvec_triton(op, kit, x)
 
     x_p = kit.pad(x, 0.0)
     y = op.diag * x
@@ -244,9 +201,10 @@ def implicit_step(state: State, op: ImplicitOperator, kit: Kit, dt,
 
     # Truncated-Neumann (polynomial) preconditioner on the Jacobi-scaled
     # system: y_{n+1} = y_n + D^{-1}(x - A y_n), 2 refinement sweeps.
-    # Replaces the reference's IncompleteLUT (sequential, TPU-hostile);
-    # at stiff dt (~60 s) plain Jacobi stalls near 1e-4 relative residual
-    # while 2 Neumann sweeps reach the tolerance in <= 3 restart cycles.
+    # Replaces the reference's IncompleteLUT (sequential, a poor fit for a
+    # data-parallel device); at stiff dt (~60 s) plain Jacobi stalls near
+    # 1e-4 relative residual while 2 Neumann sweeps reach the tolerance in
+    # <= 3 restart cycles.
     inv_diag = 1.0 / (1.0 - dt * op.diag)
 
     def jacobi(x):
@@ -259,62 +217,10 @@ def implicit_step(state: State, op: ImplicitOperator, kit: Kit, dt,
         return y
 
     from .gmres import gmres
-    from ..pallas_kernels import (basis_shape_ok, flat3d_pad_center,
-                                  flat3d_unx_win, flat3d_x, gmres_basis_ok,
-                                  matvec3d_applicable,
-                                  matvec_M_pallas_3d_core, _geometry_3d)
-    flat = gmres_basis_ok(kit, C_old.size)
-    if flat and op.Wf is not None and matvec3d_applicable(kit):
-        geo = _geometry_3d(kit)
-        rows, cols = geo[10], geo[8]
-        flat3d = basis_shape_ok((rows, cols))
-    else:
-        flat3d = False
-
-    if flat3d:
-        # Solve entirely in the 3D matvec kernel's own windowed layout
-        # (rows, cols): every A/preconditioner application chains the
-        # streamed matvec with zero layout conversions (the per-Arnoldi-step
-        # field<->flat retiles measured ~7 ms at the 1M flagship shape —
-        # comparable to the 3 matvecs they wrapped).
-        unk_p = flat3d_pad_center(kit, op.unk_f, False)
-        invd_p = flat3d_pad_center(kit, 1.0 / (1.0 - dt * op.diag_f), 1.0)
-
-        def A_s(xp):
-            yp = flat3d_pad_center(kit, matvec_M_pallas_3d_core(op, kit, xp))
-            return jnp.where(unk_p, xp - dt * yp, xp)
-
-        def A_pc(xp):  # bf16-stream operator, preconditioner-internal only
-            yp = flat3d_pad_center(
-                kit, matvec_M_pallas_3d_core(op, kit, xp, op.Wf16))
-            return jnp.where(unk_p, xp - dt * yp, xp)
-
-        def jacobi_s(xp):
-            return jnp.where(unk_p, xp * invd_p, xp)
-
-        def precond_s(xp):
-            # Neumann-4 here (vs 2 on the XLA path): at the 1M flagship
-            # shape the deeper sweep halves the Arnoldi step count, and the
-            # bf16 stream halves what each extra sweep costs — measured
-            # 261 -> ~140 ms on the production correction solve.
-            y = jacobi_s(xp)
-            for _ in range(4):
-                y = y + jacobi_s(xp - A_pc(y))
-            return y
-
-        def to_s(v):
-            return flat3d_x(kit, v)
-
-        from_s = partial(flat3d_unx_win, kit)
-    else:
-        A_s, precond_s = A, precond
-        to_s = from_s = lambda v: v
 
     def solve_correction(r32, tol_c):
-        e_s, info = gmres(A_s, to_s(r32), to_s(jnp.zeros_like(r32)),
-                          tol=tol_c, restart=restart, maxiter=restart * 2,
-                          M=precond_s, flat_kernels=flat)
-        return from_s(e_s), info
+        return gmres(A, r32, jnp.zeros_like(r32), tol=tol_c, restart=restart,
+                     maxiter=restart * 2, M=precond)
 
     b = C_old
     # optional Krylov-saving initial guess (e.g. the caller's linear
@@ -328,60 +234,40 @@ def implicit_step(state: State, op: ImplicitOperator, kit: Kit, dt,
     else:
         x0 = jnp.where(op.unknown,
                        jnp.clip(x0, 0.0, cfg.C_solid_init), C_old)
-    x_s, (res, _cycles) = gmres(A_s, to_s(b), to_s(x0), tol=inner_tol,
-                                restart=restart, maxiter=maxiter,
-                                M=precond_s, flat_kernels=flat)
-    x = from_s(x_s)
+    x, (res, _cycles) = gmres(A, b, x0, tol=inner_tol, restart=restart,
+                              maxiter=maxiter, M=precond)
 
     # Mixed-precision iterative refinement (f32 mode only): the attainable
     # f32 residual is floored near eps32 * ||A|| * ||x|| / ||b|| ~ 1e-4 at
     # stiff dt (dt*||M|| ~ 1e4) no matter how well GMRES converges, because
     # b - A(x) itself is computed in f32. Computing the residual with an
     # f64 operator and solving the (well-scaled) correction in f32 recovers
-    # ILU-in-f64-strength accuracy at the cost of a few emulated-f64
-    # matvecs per step — the reference reaches 1e-10 via Eigen GMRES+ILUT
-    # in double (pd_ard_implicit.cpp:399-417).
+    # ILU-in-f64-strength accuracy at the cost of a few f64 matvecs per
+    # step — the reference reaches 1e-10 via Eigen GMRES+ILUT in double
+    # (pd_ard_implicit.cpp:399-417).
     if refine:
         f64 = jnp.float64
         diag64 = op.diag.astype(f64)
         dt64 = dt.astype(f64)
+        W64 = op.W.astype(f64)
 
-        from ..pallas_kernels import (matvec3d_applicable,
-                                      matvec_slots_pallas_3d_ds)
-        use_ds = op.Wf is not None and matvec3d_applicable(kit)
+        def A64(x64):
+            x_p = kit.pad(x64, 0.0)
+            y = diag64 * x64
+            if kit.use_scan:
+                offs, _, _, _ = kit.stencil_jnp()
 
-        if use_ds:
-            # double-single slot sum on native-f32 VPU passes (the W stream
-            # stays f32); only the cheap elementwise diag/combine ops run
-            # in emulated f64. Accuracy ~O(S*eps32^2) ~ 1e-12 relative —
-            # far below the refinement target.
-            def A64(x64):
-                x_hi = x64.astype(kit.jdtype)
-                x_lo = (x64 - x_hi.astype(f64)).astype(kit.jdtype)
-                y_hi, y_lo = matvec_slots_pallas_3d_ds(op, kit, x_hi, x_lo)
-                y = diag64 * x64 + y_hi.astype(f64) + y_lo.astype(f64)
-                Mx = jnp.where(op.unknown, y, 0.0)
-                return jnp.where(op.unknown, x64 - dt64 * Mx, x64)
-        else:
-            W64 = op.W.astype(f64)
+                def body(y, xs):
+                    W_s, off = xs
+                    return (y + W_s.astype(f64) * kit.shift_dyn(x_p, off),
+                            None)
 
-            def A64(x64):
-                x_p = kit.pad(x64, 0.0)
-                y = diag64 * x64
-                if kit.use_scan:
-                    offs, _, _, _ = kit.stencil_jnp()
-
-                    def body(y, xs):
-                        W_s, off = xs
-                        return (y + W_s.astype(f64) * kit.shift_dyn(x_p, off),
-                                None)
-
-                    y, _ = jax.lax.scan(body, y, (op.W, offs))
-                else:
-                    for s, _, _, _ in kit.bond_iter():
-                        y = y + W64[s] * kit.shift(x_p, s)
-                Mx = jnp.where(op.unknown, y, 0.0)
-                return jnp.where(op.unknown, x64 - dt64 * Mx, x64)
+                y, _ = jax.lax.scan(body, y, (op.W, offs))
+            else:
+                for s, _, _, _ in kit.bond_iter():
+                    y = y + W64[s] * kit.shift(x_p, s)
+            Mx = jnp.where(op.unknown, y, 0.0)
+            return jnp.where(op.unknown, x64 - dt64 * Mx, x64)
 
         b64 = b.astype(f64)
         b_norm = jnp.maximum(jnp.linalg.norm(b64.ravel()), 1e-300)

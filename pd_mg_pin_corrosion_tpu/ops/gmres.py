@@ -20,14 +20,11 @@ relative tolerance) with Jacobi instead of ILU preconditioning.
 
 from __future__ import annotations
 
-from functools import partial
-
 import jax
 import jax.numpy as jnp
 
 
-def gmres(A, b, x0, *, tol, restart: int, maxiter: int,
-          M=None, flat_kernels: bool = False):
+def gmres(A, b, x0, *, tol, restart: int, maxiter: int, M=None):
     """Solve A x = b. Returns (x, info) with info = (residual, n_cycles).
 
     A: linear operator (function), M: right preconditioner (function).
@@ -35,13 +32,6 @@ def gmres(A, b, x0, *, tol, restart: int, maxiter: int,
     right-sizes correction solves with a data-dependent tolerance).
     ``maxiter`` counts total inner iterations as in Eigen
     (pd_ard_implicit.cpp:399-401): cycles = ceil(maxiter / restart).
-
-    ``flat_kernels``: store the Krylov basis flat-padded as (m+1, R, 128)
-    and run the whole-basis contractions (CGS2 dots, recombination, solution
-    update) through the streamed Pallas kernels — XLA executes those
-    contractions at ~17 GB/s on the (m+1, *field) layout while the kernels
-    run at HBM speed. Callers gate it via pallas_kernels.gmres_basis_ok
-    (TPU, f32, single device): raveling sharded fields scrambles layouts.
     """
     if M is None:
         M = lambda v: v
@@ -50,35 +40,9 @@ def gmres(A, b, x0, *, tol, restart: int, maxiter: int,
     # hence its sharding under SPMD) — the Krylov basis carries the field
     # shape on trailing axes; raveling/reshaping sharded fields scrambles
     # layouts and was observed to break convergence on device meshes.
-    # (The flat_kernels path is single-device only, see above.)
     shape = b.shape
     m = restart
     n_cycles = max(1, -(-maxiter // restart))
-
-    if flat_kernels:
-        from ..pallas_kernels import (_BR_GB, basis_axpy_pallas,
-                                      basis_dots_pallas, basis_norm_pallas,
-                                      basis_shape_ok)
-        if basis_shape_ok(shape):
-            # already a kernel-friendly (Z, C) layout (e.g. the 3D matvec's
-            # own flat layout): store vectors as-is, zero conversions
-            store_shape = shape
-            to_store = from_store = lambda v: v
-        else:
-            N = b.size
-            blk = _BR_GB * 128
-            Npad = -(-N // blk) * blk
-            R = Npad // 128
-            store_shape = (R, 128)
-
-            def to_store(v):
-                return jnp.pad(v.ravel(), (0, Npad - N)).reshape(store_shape)
-
-            def from_store(v2):
-                return v2.reshape(-1)[:N].reshape(shape)
-    else:
-        store_shape = shape
-        to_store = from_store = lambda v: v
 
     # f64 Gram-Schmidt scalars with f32 vectors: the Arnoldi dot products
     # and the small Hessenberg least-squares run in float64 (when x64 is
@@ -95,39 +59,31 @@ def gmres(A, b, x0, *, tol, restart: int, maxiter: int,
     def norm(a):
         return jnp.sqrt(vdot(a, a))
 
-    if flat_kernels:
-        def snorm(a):  # store-shape vectors: streamed self-dot kernel
-            return basis_norm_pallas(a, sdt)
-    else:
-        snorm = norm
-
-    def fnorm(v):  # field-shape vectors (padding zeros don't change norms)
-        return snorm(to_store(v))
-
-    b_norm = fnorm(b)
+    b_norm = norm(b)
     safe_b = jnp.maximum(b_norm, 1e-300)
 
-    taxes = tuple(range(1, 1 + len(store_shape)))
+    taxes = tuple(range(1, 1 + len(shape)))
 
     def basis_dots(V, w):
         """(m+1,) projections <V[k], w> in sdt."""
-        if flat_kernels:
-            return basis_dots_pallas(V, w[None], sdt)
         return jnp.sum(V * w, axis=taxes, dtype=sdt)
 
     def basis_axpy(c, V, w):
-        """w - sum_k c[k] * V[k] (c in sdt, vectors in operand dtype)."""
-        if flat_kernels:
-            return basis_axpy_pallas(c.astype(b.dtype), V, w[None])[0]
-        return w - jnp.tensordot(c.astype(b.dtype), V, axes=([0], [0]))
+        """w - sum_k c[k] * V[k] (c in sdt, vectors in operand dtype).
+
+        HIGHEST precision: on a GPU the default f32 contraction may run in
+        TF32 (~3 decimal digits), which would cost the recombination the
+        digits the CGS2 reorthogonalization exists to keep."""
+        return w - jnp.tensordot(c.astype(b.dtype), V, axes=([0], [0]),
+                                 precision=jax.lax.Precision.HIGHEST)
 
     def arnoldi_cycle(x):
-        r_s = to_store(b - A(x))
-        beta = snorm(r_s)  # sdt scalar
+        r_s = b - A(x)
+        beta = norm(r_s)  # sdt scalar
         inv_beta = jnp.where(beta > 1e-30, 1.0 / jnp.maximum(beta, 1e-300),
                              0.0).astype(b.dtype)
 
-        V = jnp.zeros((m + 1,) + store_shape, b.dtype)
+        V = jnp.zeros((m + 1,) + shape, b.dtype)
         V = V.at[0].set(r_s * inv_beta)
 
         basis_idx = jnp.arange(m + 1)
@@ -135,17 +91,16 @@ def gmres(A, b, x0, *, tol, restart: int, maxiter: int,
 
         def step(carry):
             V, R, g, cs, sn, j, done = carry
-            w = to_store(A(M(from_store(V[j]))))
+            w = A(M(V[j]))
 
             # CGS2 — classical Gram-Schmidt with one full reorthogonalization
             # pass against v_0..v_j. Numerically equivalent to MGS with
             # reorthogonalization ("twice is enough"), but each sweep is TWO
             # large fused contractions over the whole basis (a masked
             # (m+1)-row batched dot + a basis recombination) instead of
-            # 2*(m+1) sequential dot+axpy micro-kernels: at 1M unknowns the
-            # sequential form measured 14.7 ms/Arnoldi step (282 us per
-            # dot+axpy, launch/slice-overhead-bound) — more than the
-            # matvec+preconditioner it orthogonalizes. Dot products
+            # 2*(m+1) sequential dot+axpy micro-kernels, whose launch and
+            # slicing overhead can outweigh the matvec+preconditioner they
+            # orthogonalize. Dot products
             # accumulate in sdt; vectors stay in the operand dtype. Rows
             # beyond j are exact zeros, but the mask keeps them out of the
             # coefficients regardless of breakdown handling.
@@ -158,7 +113,7 @@ def gmres(A, b, x0, *, tol, restart: int, maxiter: int,
 
             w, hcol = cgs_sweep(w, jnp.zeros(m + 1, sdt))
             w, hcol = cgs_sweep(w, hcol)
-            h_last = snorm(w)
+            h_last = norm(w)
             hcol = hcol.at[j + 1].set(h_last)
             inv_h = jnp.where(h_last > 1e-30,
                               1.0 / jnp.maximum(h_last, 1e-300),
@@ -177,9 +132,9 @@ def gmres(A, b, x0, *, tol, restart: int, maxiter: int,
             # need only a handful).
             #
             # The naive form is a fori_loop of m dependent 2x2 rotations —
-            # pure scalar latency (measured 3.7 ms at m=25 on TPU, as much
-            # as a matvec). But the carried value is a first-order linear
-            # recurrence: with t_0 = h_0 and, for i < j,
+            # pure scalar latency, serialized step by step. But the carried
+            # value is a first-order linear recurrence: with t_0 = h_0 and,
+            # for i < j,
             #   h'_i    = cs_i t_i + sn_i h_{i+1}
             #   t_{i+1} = -sn_i t_i + cs_i h_{i+1}
             # so t solves t_{i+1} = a_i t_i + d_i with a_i = -sn_i and
@@ -235,8 +190,7 @@ def gmres(A, b, x0, *, tol, restart: int, maxiter: int,
             Rm, jnp.where(used, g[:m], 0.0), lower=False)
         # solution update sum_k y[k] V[k] == 0 - (-y_ext) . V with y_ext[m]=0
         y_ext = jnp.concatenate([y, jnp.zeros(1, sdt)])
-        dx = M(from_store(basis_axpy(-y_ext, V,
-                                     jnp.zeros(store_shape, b.dtype))))
+        dx = M(basis_axpy(-y_ext, V, jnp.zeros(shape, b.dtype)))
         return x + dx
 
     def cond(carry):
@@ -246,7 +200,7 @@ def gmres(A, b, x0, *, tol, restart: int, maxiter: int,
     def body(carry):
         x, k, res = carry
         x_new = arnoldi_cycle(x)
-        res_new = fnorm(b - A(x_new)) / safe_b
+        res_new = norm(b - A(x_new)) / safe_b
         # monotone restarts: never accept a cycle that increased the residual
         # (possible under finite-precision basis loss)
         better = res_new < res
@@ -254,7 +208,7 @@ def gmres(A, b, x0, *, tol, restart: int, maxiter: int,
         res = jnp.minimum(res_new, res)
         return (x, k + 1, res)
 
-    res0 = fnorm(b - A(x0)) / safe_b
+    res0 = norm(b - A(x0)) / safe_b
     x, k, res = jax.lax.while_loop(
         cond, body, (x0, jnp.asarray(0, jnp.int32), res0))
     return x, (res, k)

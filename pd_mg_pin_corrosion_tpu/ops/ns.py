@@ -1,6 +1,6 @@
 """PD Navier-Stokes: Tait EOS, CFL dt, and the weakly compressible step.
 
-TPU-native rewrite of the reference flow solver (src/pd_ns.cpp). The hot
+Dense-array rewrite of the reference flow solver (src/pd_ns.cpp). The hot
 bond loop (pd_ns.cpp:86-179) — nonlocal mass divergence, delta-SPH density
 diffusion, momentum convection / pressure gradient / viscous Laplacian —
 becomes a sum over stencil-shifted dense arrays (see kit.py). Summation

@@ -1,31 +1,30 @@
-"""Fused Pallas TPU kernel for the hot PD-NS bond loop (2D structured).
+"""Triton kernels (Pallas, ``backend="triton"``) for the 3D stencil hot ops.
 
-The XLA stencil-shift formulation (ops/ns.py) is correct and fast, but XLA
-materializes intermediate [Ny, Nx] arrays between the ~36 stencil slots,
-making the step HBM-bound on temporaries. This kernel keeps the five bond
-accumulators (mass convection, density diffusion, momentum convection /
-pressure / viscous — pd_ns.cpp:115-157) in VMEM and sweeps all stencil
-slots in one pass per row block, writing rho_new/vel_new once.
+The 3D flow cell spends its time in two stencil sums over S = 178 slots:
+the PD-NS bond sums of every flow iteration (ops/ns.ns_step) and the
+implicit-transport matvec y = diag*x + sum_s W_s * x(. + off_s) of every
+GMRES step (ops/ard_implicit.matvec_M). The XLA forms visit the slots one
+at a time and read-modify-write every accumulator in device memory per
+slot. These kernels keep the accumulators in registers instead: each
+program takes a contiguous block of interior nodes, loops over all slots
+inside the block (loads at a fixed flat offset per slot into the padded
+field, which mostly hit L1/L2) and writes each output once. The matvec
+streams the weight stack W in its own [S, N] layout, so one matvec reads
+W once.
 
-TPU alignment strategy: stencil shifts are lane/sublane misaligned slices,
-which Mosaic rejects. Instead the fields are padded to *aligned* margins
-(8 sublanes vertically, 128 lanes horizontally) and each slot shift is a
-double `pltpu.roll`; the roll's wrap-around contamination lands entirely in
-the padding margins, which are excluded from the aligned output slice.
-
-Scope: 2D, float32, whole padded fields resident in VMEM (fine to ~1M
-nodes); other cases fall back to the XLA path via `ns_step_auto`.
+Both kernels have the XLA path as their reference (tests/test_pallas.py,
+chip_smoke.py). ``use_kernels`` decides which path a kit takes.
 """
 
 from __future__ import annotations
 
-import functools
-import os
 from dataclasses import replace
+from functools import partial
 
 import jax
 import jax.numpy as jnp
-import numpy as np
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as plgpu
 
 from .fields import State
 from .grid import FLUID, OUTSIDE
@@ -33,1368 +32,204 @@ from .kit import Kit
 from .ops.ns import ns_step as ns_step_xla
 from .ops.ns import tait_pressure
 
-try:
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-    HAVE_PALLAS = True
-except Exception:  # pragma: no cover
-    HAVE_PALLAS = False
-
-_PR = 8     # vertical margin (sublane-aligned, >= mext)
-_PC = 128   # horizontal margin (lane-aligned, >= mext)
-_BY = 128   # rows per grid step
-
-# Budget for the 6 resident padded inputs + 3 outputs. Empirically Mosaic
-# on v5e handles ~55MB of resident refs (spilling/streaming as needed) and
-# the kernel stays ~3x faster than the XLA path at that size.
-_VMEM_BUDGET = 56 * 1024 * 1024
+# interior nodes per program, warps per program (powers of two), and
+# stencil slots per trip of the in-kernel slot loop. Chosen on an H100 at
+# the params_3d.cfg geometry; the other variants tried (NS 128/4/1 and
+# 256/8/4, matvec 256/4/4, 512/4/8 and 2048/8/2) were within 10 %.
+# Unrolling all 178 slots instead made Triton's compile run for minutes.
+NS_BLOCK, NS_WARPS, NS_UNROLL = 256, 4, 2
+MV_BLOCK, MV_WARPS, MV_UNROLL = 1024, 4, 4
 
 
-def _geometry(kit: Kit):
-    ny, nx = kit.shape
-    nyb = -(-ny // _BY) * _BY               # interior rows padded to BY
-    nxr = -(-nx // 128) * 128               # aligned output width
-    rows = nyb + 2 * _PR
-    cols = _PC + nxr + _PC
-    return ny, nx, nyb, nxr, rows, cols
+def use_kernels(kit: Kit, platform: str | None = None) -> bool:
+    """The Triton kernels serve 3D float32 kits on one GPU; every other
+    case (f64, 2D, CPU, a sharded kit) takes the XLA path.
+
+    ``platform`` defaults to the default backend's (``jax.default_backend()``).
+    """
+    platform = platform or jax.default_backend()
+    return (platform == "gpu" and kit.dim == 3
+            and kit.jdtype == jnp.float32 and not kit.multi_device)
 
 
-# set True to force the XLA paths (e.g. when running on a CPU device mesh
-# while the default backend is TPU — Mosaic kernels only lower on TPU)
-FORCE_DISABLE = False
-
-# set True to run kernels through the Pallas interpreter (CPU-executable;
-# used by the CI-able kernel-logic tests in tests/test_pallas.py)
-INTERPRET = False
-
-
-def _on_tpu() -> bool:
-    if FORCE_DISABLE:
-        return False
-    try:
-        return jax.default_backend() == "tpu"
-    except Exception:
-        return False
+def _padded_index(kit: Kit, n):
+    """Flat interior index -> flat index into the kit.pad-ed field."""
+    _, ny, nx = kit.shape
+    m = kit.mext
+    k = n // (ny * nx)
+    r = n - k * (ny * nx)
+    j = r // nx
+    i = r - j * nx
+    return ((k + m) * (ny + 2 * m) + (j + m)) * (nx + 2 * m) + (i + m)
 
 
-def pallas_applicable(kit: Kit) -> bool:
-    if not HAVE_PALLAS or not _on_tpu() or kit.dim != 2 or kit.jdtype != jnp.float32:
-        return False
-    if kit.multi_device:
-        # pl.pallas_call has no SPMD partitioning rule: a sharded input
-        # would be replicated/all-gathered per call (or fail to lower)
-        return False
-    if kit.mext > _PR:
-        return False
-    ny, nx, nyb, nxr, rows, cols = _geometry(kit)
-    # below ~100k nodes the XLA stencil path fuses better than the kernel's
-    # fixed pad/launch overhead; above it the kernel is ~2-3x faster
-    if ny * nx < 100_000:
-        return False
-    return (6 * rows * cols + 3 * nyb * nxr) * 4 <= _VMEM_BUDGET
+def _slot_tables(kit: Kit):
+    """Per-slot flat offsets into the padded field [S] int32 and bond
+    constants [S, 5] = (xi, vol, e_x, e_y, e_z) in float32, as the XLA
+    scan form rounds them (Kit.stencil_jnp)."""
+    _, ny, nx = kit.shape
+    m = kit.mext
+    offs = [(dk * (ny + 2 * m) + dj) * (nx + 2 * m) + di
+            for dk, dj, di in kit.offsets]
+    consts = [(xi, vol, *e) for _, xi, e, vol in kit.bond_iter()]
+    return (jnp.asarray(offs, jnp.int32), jnp.asarray(consts, jnp.float32))
 
 
-def _ns_kernel(kit: Kit, nyb: int, nxr: int,
-               dt_ref, rho_ref, vx_ref, vy_ref, p_ref, act_ref, fl_ref,
-               rho_out, vx_out, vy_out):
+def _slot_loop(n_slots: int, unroll: int, body, carry):
+    """body(s, carry) over slots 0..n_slots-1 in order: a loop whose every
+    trip runs ``unroll`` slots, then the remainder."""
+    def trip(t, c):
+        for u in range(unroll):
+            c = body(t * unroll + u, c)
+        return c
+
+    carry = jax.lax.fori_loop(0, n_slots // unroll, trip, carry)
+    for s in range(n_slots - n_slots % unroll, n_slots):
+        carry = body(s, carry)
+    return carry
+
+
+def _block_nodes(n_total: int, block: int):
+    """(block slice, node indices clamped into range, live mask)."""
+    start = pl.program_id(0) * block
+    n = start + jnp.arange(block, dtype=jnp.int32)
+    live = n < n_total
+    return pl.ds(start, block), jnp.minimum(n, n_total - 1), live
+
+
+def _ns_kernel(kit: Kit, block: int, unroll: int, offs_ref, bond_ref, dt_ref,
+               rho_ref, vx_ref, vy_ref, vz_ref, p_ref, act_ref,
+               rho_out, vx_out, vy_out, vz_out):
+    """PD-NS bond sums (pd_ns.cpp:86-179) for one block of interior nodes,
+    slot by slot in stencil order with ops/ns.ns_step's per-slot
+    arithmetic; the 11 accumulators stay in registers."""
     cfg = kit.cfg
-    i = pl.program_id(0)
-    # np.int32 keeps index math i32 under jax_enable_x64 (Mosaic rejects i64)
-    row0 = i * np.int32(_BY)  # interior row offset (aligned; nyb % BY == 0)
+    sl, n, live = _block_nodes(rho_out.shape[0], block)
+    p = _padded_index(kit, n)
+    vel_refs = (vx_ref, vy_ref, vz_ref)
 
-    win = _BY + 2 * _PR
-
-    rho_w = rho_ref[pl.ds(row0, win), :]
-    vx_w = vx_ref[pl.ds(row0, win), :]
-    vy_w = vy_ref[pl.ds(row0, win), :]
-    p_w = p_ref[pl.ds(row0, win), :]
-    act_w = act_ref[pl.ds(row0, win), :]
-
-    def center(a):
-        return a[_PR:_PR + _BY, _PC:_PC + nxr]
-
-    rho_i = center(rho_w)
-    vx_i = center(vx_w)
-    vy_i = center(vy_w)
-    p_i = center(p_w)
-
-    zero = jnp.zeros((_BY, nxr), jnp.float32)
-    mass_conv = zero
-    mass_diff = zero
-    mcx = zero
-    mcy = zero
-    mpx = zero
-    mpy = zero
-    mvx = zero
-    mvy = zero
+    rho_i = rho_ref[p]
+    v_i = [r[p] for r in vel_refs]
+    p_i = p_ref[p]
+    m_i = [rho_i * v for v in v_i]
 
     D_v = cfg.eta_density * cfg.c0 * cfg.delta
     dens_coeff = kit.beta_lap * D_v
 
-    for s, xi, e_ij, vol in kit.bond_iter():
-        dj, di = kit.offsets[s]
-
-        def sh(a):
-            # neighbor view: element (r, c) -> a[r + dj, c + di]; roll wrap
-            # contamination stays inside the >= mext-wide margins.
-            # pltpu.roll requires non-negative shifts: -d mod size.
-            # np.int32: under jax_enable_x64 a Python int traces as i64,
-            # which Mosaic's tpu.dynamic_rotate rejects.
-            r = pltpu.roll(a, np.int32((-dj) % a.shape[0]), 0) if dj else a
-            r = pltpu.roll(r, np.int32((-di) % r.shape[1]), 1) if di else r
-            return center(r)
-
-        V_j = vol * sh(act_w)
-        rho_j = sh(rho_w)
-        vx_j = sh(vx_w)
-        vy_j = sh(vy_w)
-        p_j = sh(p_w)
-
+    def slot(s, acc):
+        mass_conv, mass_diff, mom_conv, mom_pres, mom_visc = acc
+        q = p + offs_ref[s]
+        xi = bond_ref[s, 0]
+        e = [bond_ref[s, 2 + d] for d in range(3)]
+        V_j = bond_ref[s, 1] * act_ref[q]
+        rho_j = rho_ref[q]
+        v_j = [r[q] for r in vel_refs]
+        p_j = p_ref[q]
         inv_xi = 1.0 / xi
         inv_xi2 = inv_xi * inv_xi
-        ex, ey = e_ij
 
-        # terms scaled by an exactly-zero e component (axis-aligned bonds)
-        # are exact zeros — skip them at trace time; Mosaic does not fold
-        # x*0.0, so each skip drops whole VPU passes. Accumulators seed
-        # from the first live term (never a `zero +` pass — Mosaic does
-        # not fold 0.0+x either). Exact for finite fields.
-        fd = cx = cy = None
-        if ex != 0.0:
-            fd = (rho_j * vx_j - rho_i * vx_i) * ex
-            cx = (rho_j * vx_j * vx_j - rho_i * vx_i * vx_i) * ex
-            cy = (rho_j * vy_j * vx_j - rho_i * vy_i * vx_i) * ex
-        if ey != 0.0:
-            tf = (rho_j * vy_j - rho_i * vy_i) * ey
-            tx = (rho_j * vx_j * vy_j - rho_i * vx_i * vy_i) * ey
-            ty = (rho_j * vy_j * vy_j - rho_i * vy_i * vy_i) * ey
-            fd = tf if fd is None else fd + tf
-            cx = tx if cx is None else cx + tx
-            cy = ty if cy is None else cy + ty
-        mass_conv += fd * inv_xi * V_j
-        mass_diff += dens_coeff * (rho_j - rho_i) * inv_xi2 * V_j
-        mcx += cx * inv_xi * V_j
-        mcy += cy * inv_xi * V_j
+        m_j = [rho_j * v for v in v_j]
+        flux = sum((m_j[d] - m_i[d]) * e[d] for d in range(3))
+        mass_conv = mass_conv + flux * inv_xi * V_j
+        mass_diff = mass_diff + dens_coeff * (rho_j - rho_i) * inv_xi2 * V_j
+        mom_conv = tuple(
+            mom_conv[d] + sum((m_j[d] * v_j[dp] - m_i[d] * v_i[dp]) * e[dp]
+                              for dp in range(3)) * inv_xi * V_j
+            for d in range(3))
+        mom_pres = tuple(mom_pres[d] + (p_j - p_i) * e[d] * inv_xi * V_j
+                         for d in range(3))
+        mom_visc = tuple(mom_visc[d] + (v_j[d] - v_i[d]) * inv_xi2 * V_j
+                         for d in range(3))
+        return mass_conv, mass_diff, mom_conv, mom_pres, mom_visc
 
-        dp = (p_j - p_i) * inv_xi * V_j
-        if ex != 0.0:
-            mpx += dp * ex
-        if ey != 0.0:
-            mpy += dp * ey
+    zero = jnp.zeros((block,), jnp.float32)
+    acc = (zero, zero, (zero,) * 3, (zero,) * 3, (zero,) * 3)
+    mass_conv, mass_diff, mom_conv, mom_pres, mom_visc = _slot_loop(
+        kit.S, unroll, slot, acc)
 
-        mvx += (vx_j - vx_i) * inv_xi2 * V_j
-        mvy += (vy_j - vy_i) * inv_xi2 * V_j
-
-    dt = dt_ref[0, 0]
+    dt = dt_ref[0]
     a_inv_VH = kit.alpha / kit.V_H
-
     rho_new = rho_i + dt * (-a_inv_VH * mass_conv + mass_diff)
     rho_new = jnp.clip(rho_new, 0.5 * cfg.rho_f, 2.0 * cfg.rho_f)
-
+    plgpu.store(rho_out.at[sl], rho_new, mask=live)
     inv_rho = 1.0 / rho_i
-    vx_new = vx_i + dt * inv_rho * (-a_inv_VH * (mcx + mpx) + cfg.mu_f * kit.beta_lap * mvx)
-    vy_new = vy_i + dt * inv_rho * (-a_inv_VH * (mcy + mpy) + cfg.mu_f * kit.beta_lap * mvy)
-
-    fluid = fl_ref[pl.ds(row0, _BY), :]
-    rho_out[pl.ds(row0, _BY), :] = jnp.where(fluid, rho_new, rho_i)
-    vx_out[pl.ds(row0, _BY), :] = jnp.where(fluid, vx_new, vx_i)
-    vy_out[pl.ds(row0, _BY), :] = jnp.where(fluid, vy_new, vy_i)
+    for d, out in enumerate((vx_out, vy_out, vz_out)):
+        v_new = v_i[d] + dt * inv_rho * (
+            -a_inv_VH * mom_conv[d] - a_inv_VH * mom_pres[d]
+            + cfg.mu_f * kit.beta_lap * mom_visc[d])
+        plgpu.store(out.at[sl], v_new, mask=live)
 
 
-def _pad_aligned(a, ny, nx, nyb, nxr, fill=0.0, halo=None):
-    """[ny, nx] -> [nyb + 2PR, PC + nxr + PC] with the interior at (PR, PC).
+@partial(jax.jit, static_argnames=("interpret",))
+def ns_step_triton(state: State, kit: Kit, dt, *,
+                   interpret: bool = False) -> State:
+    """Drop-in for ops.ns.ns_step on 3D float32 kits.
 
-    ``halo``: optional (lo, hi) row slabs of height m <= _PR from the axial
-    neighbor shards (parallel/shard_kernels). They are placed contiguously
-    with the interior — lo at rows [_PR - m, _PR), hi at rows
-    [_PR + ny, _PR + ny + m) — exactly where the kernel's roll-based
-    neighbor views read rows beyond the local interior, so each shard's
-    block computes the same bonds the single-device kernel would.
+    ``interpret`` runs the kernel in the Pallas interpreter (tests only).
     """
-    if halo is None:
-        return jnp.pad(a, ((_PR, _PR + nyb - ny), (_PC, _PC + nxr - nx)),
-                       constant_values=fill)
-    lo, hi = halo
-    m = lo.shape[0]
-    a = jnp.concatenate([lo, a, hi], axis=0)
-    return jnp.pad(a, ((_PR - m, _PR + nyb - ny - m), (_PC, _PC + nxr - nx)),
-                   constant_values=fill)
-
-
-@jax.jit
-def ns_step_pallas(state: State, kit: Kit, dt, halo=None) -> State:
-    """Drop-in replacement for ops.ns.ns_step (2D f32 structured grids).
-
-    ``halo``: optional dict of (lo, hi) axial-neighbor row slabs for
-    'rho', 'vx', 'vy', 'act' (see _pad_aligned) — supplied by the
-    shard_map wrapper (parallel/shard_kernels.ns_step_sharded) so the
-    kernel runs per-shard on a device mesh. The pressure halo is derived
-    from the rho halo (Tait EOS is pointwise)."""
-    ny, nx, nyb, nxr, rows, cols = _geometry(kit)
-
+    N = state.rho.size
     pressure = tait_pressure(state.rho, kit)
-    h = halo or {}
+    act = (kit.pad(state.node_type, OUTSIDE) != OUTSIDE).astype(jnp.float32)
+    fields = [kit.pad(f, 0.0).ravel() for f in
+              (state.rho, state.vel[..., 0], state.vel[..., 1],
+               state.vel[..., 2], pressure)]
+    dt_arr = jnp.asarray(dt, jnp.float32).reshape(1)
+    rho_new, *vel_new = pl.pallas_call(
+        partial(_ns_kernel, kit, NS_BLOCK, NS_UNROLL),
+        out_shape=[jax.ShapeDtypeStruct((N,), jnp.float32)] * 4,
+        grid=(pl.cdiv(N, NS_BLOCK),),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NS_WARPS),
+        interpret=interpret,
+        name="ns_bonds_3d",
+    )(*_slot_tables(kit), dt_arr, *fields, act.ravel())
 
-    def p_halo():
-        lo, hi = h["rho"]
-        return (tait_pressure(lo, kit), tait_pressure(hi, kit))
-
-    args = [
-        _pad_aligned(state.rho, ny, nx, nyb, nxr, halo=h.get("rho")),
-        _pad_aligned(state.vel[..., 0], ny, nx, nyb, nxr, halo=h.get("vx")),
-        _pad_aligned(state.vel[..., 1], ny, nx, nyb, nxr, halo=h.get("vy")),
-        _pad_aligned(pressure, ny, nx, nyb, nxr,
-                     halo=p_halo() if "rho" in h else None),
-        _pad_aligned((state.node_type != OUTSIDE).astype(jnp.float32),
-                     ny, nx, nyb, nxr, halo=h.get("act")),
-    ]
-    fluid = jnp.pad(state.node_type == FLUID,
-                    ((0, nyb - ny), (0, nxr - nx)), constant_values=False)
-    dt_arr = jnp.asarray(dt, jnp.float32).reshape(1, 1)
-
-    kernel = functools.partial(_ns_kernel, kit, nyb, nxr)
-    out_shape = [jax.ShapeDtypeStruct((nyb, nxr), jnp.float32)] * 3
-
-    # trace the kernel under x64-off: BlockSpec index maps and grid math
-    # otherwise emit i64, which Mosaic cannot legalize (all kernel data is
-    # f32/i32 regardless of the global x64 flag)
-    with jax.enable_x64(False):
-        rho_new, vx_new, vy_new = pl.pallas_call(
-            kernel,
-            grid=(nyb // _BY,),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)]
-            + [pl.BlockSpec(memory_space=pltpu.VMEM)] * 6,
-            out_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 3,
-            out_shape=out_shape,
-            interpret=INTERPRET,
-        )(dt_arr, *args, fluid)
-
-    rho_new = rho_new[:ny, :nx]
-    vel_new = jnp.stack([vx_new[:ny, :nx], vy_new[:ny, :nx]], axis=-1)
-    return replace(state, rho=rho_new, vel=vel_new, pressure=pressure)
+    fluid = state.node_type == FLUID
+    vel = jnp.stack([v.reshape(kit.shape) for v in vel_new], axis=-1)
+    return replace(state,
+                   rho=jnp.where(fluid, rho_new.reshape(kit.shape), state.rho),
+                   vel=jnp.where(fluid[..., None], vel, state.vel),
+                   pressure=pressure)
 
 
 def ns_step_auto(state: State, kit: Kit, dt) -> State:
-    """Pallas kernel when applicable, XLA stencil-shift otherwise. On a TPU
-    device mesh the kernel runs per-shard under shard_map with ICI halo
-    exchange (parallel/shard_kernels); CPU meshes and small local slabs
-    keep the XLA path, which partitions under SPMD automatically."""
-    if pallas_applicable(kit):
-        return ns_step_pallas(state, kit, dt)
-    if pallas_applicable_3d(kit):
-        return ns_step_pallas_3d(state, kit, dt)
-    from .parallel.shard_kernels import ns_step_sharded, sharded_ns_applicable
-    if sharded_ns_applicable(kit):
-        return ns_step_sharded(state, kit, dt)
+    """The Triton kernel where ``use_kernels`` says so, XLA otherwise."""
+    if use_kernels(kit):
+        return ns_step_triton(state, kit, dt)
     return ns_step_xla(state, kit, dt)
 
 
-# ---------------------------------------------------------------------------
-# 3D fused NS bond kernel — flattened-cross-section layout
-# ---------------------------------------------------------------------------
-#
-# A naive 3D VMEM layout [Z, Y, X] wastes ~5x in the lane dimension (X ~ 70
-# padded to 128 + roll margins). Instead the (y, x) cross-section is
-# flattened into the lane axis with per-row x margins: index (y, x) ->
-# y * Nxp + x with Nxp = Nx + 2*mext. An in-plane stencil offset (dj, di)
-# is then ONE lane roll by dj*Nxp + di (the x margins absorb the di
-# carry-over between rows; contaminated margin lanes carry act=0 so their
-# bonds are masked exactly like out-of-domain neighbors). The z offset dk
-# indexes sublanes directly. Lane rolls are memoized per (dj, di) so the
-# ~178 3D slots cost only ~38 distinct rolls per field per block, and slots
-# accumulate in exact stencil order — bit-identical to the XLA path.
+def _matvec_kernel(kit: Kit, block: int, unroll: int, offs_ref, x_ref, w_ref,
+                   diag_ref, y_ref):
+    """y = diag*x + sum_s W_s * x(. + off_s) for one block of interior
+    nodes, summed in stencil order as the XLA matvec does."""
+    sl, n, live = _block_nodes(y_ref.shape[0], block)
+    p = _padded_index(kit, n)
 
-# z margin of the windowed layout (sublane-aligned, >= mext). 8 is NOT
-# just conservative padding — it is load-bearing for Mosaic's register
-# allocator: _PRZ=4 (a 16-row window, still 8-aligned DMA since windows
-# start at i*_BZ) would cut the per-group roll work by a third, but the
-# center/dk slices then start at rows 4+dk (vs 8+dk), and the measured
-# result at the 1M production geometry is 271.6M of "register allocator
-# spill slots" vs the 128M VMEM budget (the PRZ=8 kernel fits at ~13 ms/
-# step). Third liveness-blocked variant of this kernel, after the
-# momentum-convection factoring and the VMEM window re-slice (ROADMAP).
-_PRZ = 8
-# z rows per grid step. Larger blocks amortize the halo DMA (a window of
-# _BZ + 2*_PRZ planes serves _BZ planes of output) and the per-group lane
-# rolls, which act on the whole window — but Mosaic's live ranges for the
-# 178-slot unrolled body scale with the window too: at the 1M production
-# geometry BZ=32 exceeds VMEM (355M of 128M, measured) and BZ=16 compiles
-# for >10 min. 8 is the validated production setting; the env knob remains
-# for sweeps on smaller geometries (scripts/bench_ns3d_bz.py).
-_BZ = int(os.environ.get("PD_TPU_NS3D_BZ", "8"))
-# sublane alignment, and nzb (a _BZ multiple) must stay divisible by the
-# matvec kernel's independent _BZ_MV = 8
-_BZ = max(8, (_BZ // 8) * 8)
+    def slot(s, y):
+        w = plgpu.load(w_ref.at[s, sl], mask=live, other=0.0)
+        return y + w * x_ref[p + offs_ref[s]]
+
+    y = plgpu.load(diag_ref.at[sl], mask=live, other=0.0) * x_ref[p]
+    plgpu.store(y_ref.at[sl], _slot_loop(kit.S, unroll, slot, y), mask=live)
 
 
-def _geometry_3d(kit: Kit):
-    nz, ny, nx = kit.shape
-    mx = kit.mext
-    nxp = nx + 2 * mx
-    F = ny * nxp
-    Fr = -(-F // 128) * 128
-    pcf = -(-(kit.mext * nxp + kit.mext) // 128) * 128
-    cols = pcf + Fr + pcf
-    nzb = -(-nz // _BZ) * _BZ
-    rows = nzb + 2 * _PRZ
-    return nz, ny, nx, mx, nxp, F, Fr, pcf, cols, nzb, rows
+@partial(jax.jit, static_argnames=("interpret",))
+def matvec_triton(op, kit: Kit, x: jax.Array, *,
+                  interpret: bool = False) -> jax.Array:
+    """Drop-in for ops.ard_implicit.matvec_M on 3D float32 kits.
 
-
-# Stencil-group chunks per z-block (minor grid dimension): each grid
-# program processes 1/NCHUNK of the (dj, di) roll groups, accumulating in
-# persistent VMEM scratch — bounding Mosaic's live set BY CONSTRUCTION
-# (jax.lax.optimization_barrier is not implemented in the Pallas TPU
-# lowering, so scheduling hints are unavailable). With the act-static
-# restructuring below the whole body fits at NCHUNK=1 (measured fastest);
-# the knob remains for sweeps (scripts/exp_ns3d_chunked.py).
-_NCH3D = max(1, int(os.environ.get("PD_TPU_NS3D_NCHUNK", "1")))
-
-
-def _group_chunks_3d(kit: Kit, nchunk: int):
-    """Contiguous split of the (dj, di) lane-roll groups into nchunk
-    chunks, balanced by slot count (reference stencil order preserved)."""
-    groups: dict = {}
-    for s, xi, e_ij, vol in kit.bond_iter():
-        dk, dj, di = kit.offsets[s]
-        groups.setdefault((dj, di), []).append(
-            (dk, float(xi), tuple(map(float, e_ij)), float(vol)))
-    items = list(groups.items())
-    nchunk = min(nchunk, len(items))
-    total = sum(len(v) for _, v in items)
-    per = total / nchunk
-    chunks, cur, acc = [], [], 0.0
-    for it in items:
-        cur.append(it)
-        acc += len(it[1])
-        if acc >= per * (len(chunks) + 1) and len(chunks) < nchunk - 1:
-            chunks.append(cur)
-            cur = []
-    chunks.append(cur)
-    return chunks
-
-
-def actconv_3d_jnp(kit: Kit, node_type) -> jax.Array:
-    """[4, Nz, Ny, Nx] (B2, Bx, By, Bz) pure-act stencil convolutions —
-    jnp fallback for hand-built kits (tests/validation); production kits
-    carry the host-precomputed kit.actconv3d (kit._actconv3d_np)."""
-    act = (node_type != OUTSIDE).astype(jnp.float32)
-    mx = kit.mext
-    ap = jnp.pad(act, ((mx, mx), (mx, mx), (mx, mx)))
-    nz, ny, nx = kit.shape
-    zero = jnp.zeros((nz, ny, nx), jnp.float32)
-    B = [zero, zero, zero, zero]
-    for s, xi, e_ij, vol in kit.bond_iter():
-        dk, dj, di = kit.offsets[s]
-        a_s = ap[mx + dk:mx + dk + nz, mx + dj:mx + dj + ny,
-                 mx + di:mx + di + nx]
-        B[0] = B[0] + np.float32(vol / (xi * xi)) * a_s
-        for d in range(3):
-            if e_ij[d] != 0.0:
-                B[1 + d] = B[1 + d] + np.float32(e_ij[d] * vol / xi) * a_s
-    return jnp.stack(B)
-
-
-def pallas_applicable_3d(kit: Kit) -> bool:
-    if not HAVE_PALLAS or not _on_tpu() or kit.dim != 3 or kit.jdtype != jnp.float32:
-        return False
-    if kit.multi_device:
-        return False  # no SPMD rule for pallas_call (see pallas_applicable)
-    if kit.mext > _PRZ:
-        return False
-    nz, ny, nx, mx, nxp, F, Fr, pcf, cols, nzb, rows = _geometry_3d(kit)
-    if nz * ny * nx < 100_000:
-        return False
-    # inputs live in HBM; VMEM holds the 5 per-block DMA windows, the 11
-    # accumulator planes, and the pipelined B/output blocks
-    win = _BZ + 2 * _PRZ
-    return (5 * win * cols + 30 * _BZ * Fr) * 4 <= _VMEM_BUDGET
-
-
-def _ns_kernel_3d(kit: Kit, chunks, nzb: int, Fr: int, pcf: int,
-                  dt_ref, rho_ref, vx_ref, vy_ref, vz_ref, p_ref,
-                  b2_ref, bx_ref, by_ref, bz_ref,
-                  rho_out, vx_out, vy_out, vz_out,
-                  rho_s, vx_s, vy_s, vz_s, p_s, acc_ref, sems):
-    """act-static j-convolution form of the PD-NS bond sums
-    (pd_ns.cpp:86-179), restructured from the round-3 kernel (1.78x):
-
-    act = (node_type != OUTSIDE) never changes over a run and masks are
-    idempotent (act^2 == act), so the caller pre-masks every field
-    (rho*act, v*act, Tait(rho)*act) and the pure-act convolutions B2/B_d
-    arrive precomputed (kit.actconv3d). Each bond accumulation then
-    reduces to j-side-only terms — no per-slot act loads or multiplies,
-    no act window (5 lane rolls per group instead of 6) — with the
-    center-side corrections applied ONCE at finalize:
-        sum_s c_s act_j (f_j - f_i)  =  [sum_s c_s f^m_j] - f_i * B[c].
-    The grid's minor dimension iterates stencil-group chunks with the 11
-    accumulators in persistent VMEM scratch, bounding Mosaic's register-
-    allocator live set per program (the full 178-slot body of the
-    previous form spilled 122-312MB whenever ALU work shrank or _BZ
-    grew; measurements in scripts/exp_ns3d_chunked.py / docs/ROADMAP.md).
+    ``interpret`` runs the kernel in the Pallas interpreter (tests only).
     """
-    cfg = kit.cfg
-    nxp = kit.shape[2] + 2 * kit.mext
-    nchunk = len(chunks)
-    i = pl.program_id(0)
-    c = pl.program_id(1)
-    row0 = i * np.int32(_BZ)  # i32 under x64 (Mosaic rejects i64 indices)
-    win = _BZ + 2 * _PRZ
-
-    @pl.when(c == 0)
-    def _prologue():
-        # Inputs stay in HBM ([rows, cols] full arrays); DMA each block's
-        # halo'd window into VMEM scratch once per z-block (windows
-        # persist across the chunk grid steps). Keeping whole 1M-node
-        # fields VMEM-resident needed ~105MB scoped and faulted the
-        # worker when embedded in the flow while_loop.
-        copies = []
-        for k, (hbm, scr) in enumerate(
-                [(rho_ref, rho_s), (vx_ref, vx_s), (vy_ref, vy_s),
-                 (vz_ref, vz_s), (p_ref, p_s)]):
-            dma = pltpu.make_async_copy(hbm.at[pl.ds(row0, win), :], scr,
-                                        sems.at[k])
-            dma.start()
-            copies.append(dma)
-        for dma in copies:
-            dma.wait()
-        acc_ref[...] = jnp.zeros_like(acc_ref)
-
-    def center(a):
-        return a[_PRZ:_PRZ + _BZ, pcf:pcf + Fr]
-
-    for cc, chunk in enumerate(chunks):
-        @pl.when(c == cc)
-        def _chunk(chunk=chunk):
-            w = {
-                "rho": rho_s[...],
-                "vx": vx_s[...],
-                "vy": vy_s[...],
-                "vz": vz_s[...],
-                "p": p_s[...],
-            }
-            zero = jnp.zeros((_BZ, Fr), jnp.float32)
-            A_mass = zero
-            A_diff = zero
-            A_conv = [zero, zero, zero]
-            A_pres = [zero, zero, zero]
-            A_visc = [zero, zero, zero]
-
-            for (dj, di), slots in chunk:
-                f = dj * nxp + di
-                lw = {
-                    key: (pltpu.roll(a, np.int32((-f) % a.shape[1]), 1)
-                          if f else a)
-                    for key, a in w.items()
-                }
-
-                for dk, xi, e_ij, vol in slots:
-                    def sh(key):
-                        return lw[key][_PRZ + dk:_PRZ + dk + _BZ,
-                                       pcf:pcf + Fr]
-
-                    rho_j = sh("rho")
-                    v_j = [sh("vx"), sh("vy"), sh("vz")]
-                    p_j = sh("p")
-
-                    c1 = vol / xi
-                    c2 = vol / (xi * xi)
-                    # e components that are exactly 0.0 (axis-aligned
-                    # bonds) contribute exact zeros; skipping them drops
-                    # whole VPU passes (Mosaic folds neither x*0.0 nor
-                    # 0.0+x). Exact for finite fields.
-                    et = [e_ij[d] * c1 for d in range(3)]
-                    fdj = None
-                    for d in range(3):
-                        if e_ij[d] != 0.0:
-                            t = (rho_j * v_j[d]) * et[d]
-                            fdj = t if fdj is None else fdj + t
-                    A_mass += fdj
-                    A_diff += rho_j * c2
-                    for d in range(3):
-                        A_conv[d] += v_j[d] * fdj
-                        if e_ij[d] != 0.0:
-                            A_pres[d] += p_j * et[d]
-                        A_visc[d] += v_j[d] * c2
-
-            accs = [A_mass, A_diff] + A_conv + A_pres + A_visc
-            for k, a in enumerate(accs):
-                acc_ref[k] += a
-
-    @pl.when(c == nchunk - 1)
-    def _finalize():
-        # centers come from the masked windows: outputs only matter at
-        # FLUID nodes (the caller's jnp.where), where act == 1 so
-        # masked == raw
-        rho_i = center(rho_s[...])
-        v_i = [center(vx_s[...]), center(vy_s[...]), center(vz_s[...])]
-        p_i = center(p_s[...])
-
-        dt = dt_ref[0, 0]
-        a_inv_VH = kit.alpha / kit.V_H
-        D_v = cfg.eta_density * cfg.c0 * cfg.delta
-        dens_coeff = kit.beta_lap * D_v
-
-        B2 = b2_ref[...]
-        B = [bx_ref[...], by_ref[...], bz_ref[...]]
-        m_i = [rho_i * v_i[d] for d in range(3)]
-        F_i = m_i[0] * B[0] + m_i[1] * B[1] + m_i[2] * B[2]
-        mass_conv = acc_ref[0] - F_i
-        mass_diff = acc_ref[1] - rho_i * B2
-        mom_conv = [acc_ref[2 + d] - v_i[d] * F_i for d in range(3)]
-        mom_pres = [acc_ref[5 + d] - p_i * B[d] for d in range(3)]
-        mom_visc = [acc_ref[8 + d] - v_i[d] * B2 for d in range(3)]
-
-        rho_new = rho_i + dt * (-a_inv_VH * mass_conv
-                                + dens_coeff * mass_diff)
-        rho_new = jnp.clip(rho_new, 0.5 * cfg.rho_f, 2.0 * cfg.rho_f)
-
-        inv_rho = 1.0 / rho_i
-        v_new = [
-            v_i[d] + dt * inv_rho * (
-                -a_inv_VH * (mom_conv[d] + mom_pres[d])
-                + cfg.mu_f * kit.beta_lap * mom_visc[d]
-            )
-            for d in range(3)
-        ]
-        # non-fluid values (incl. 1/0 at masked nodes) are discarded by
-        # the caller's jnp.where(fluid, ...)
-        rho_out[...] = rho_new
-        vx_out[...] = v_new[0]
-        vy_out[...] = v_new[1]
-        vz_out[...] = v_new[2]
-
-
-def _flatten_3d(a, kit: Kit, nzb, Fr, pcf, fill=0.0, halo=None):
-    """[Nz, Ny, Nx] -> [nzb + 2*PRZ, pcf + Fr + pcf] flattened layout.
-
-    ``halo``: optional (lo, hi) z-plane slabs [m, Ny, Nx] from the axial
-    neighbor shards, placed contiguously with the interior in the z margin
-    (rows [_PRZ - m, _PRZ) and [_PRZ + nz, _PRZ + nz + m)) — where the
-    kernels' dk sublane views read beyond the local interior."""
-    nz, ny, nx = kit.shape
-    mx = kit.mext
-    zpad = (_PRZ, _PRZ + nzb - nz)
-    if halo is not None:
-        lo, hi = halo
-        m = lo.shape[0]
-        a = jnp.concatenate([lo, a, hi], axis=0)
-        nz = nz + 2 * m
-        zpad = (_PRZ - m, _PRZ + nzb - nz + m)
-    a = jnp.pad(a, ((0, 0), (0, 0), (mx, mx)), constant_values=fill)
-    a = a.reshape(nz, ny * (nx + 2 * mx))
-    return jnp.pad(
-        a, (zpad, (pcf, pcf + Fr - a.shape[1])),
-        constant_values=fill)
-
-
-@jax.jit
-def ns_step_pallas_3d(state: State, kit: Kit, dt, halo=None,
-                      actconv=None) -> State:
-    """Drop-in replacement for ops.ns.ns_step (3D f32 structured grids).
-
-    ``halo``: optional dict of (lo, hi) z-plane slabs for 'rho', 'vx',
-    'vy', 'vz', 'act' (see _flatten_3d), supplied by the shard_map wrapper
-    so the kernel runs per-shard on a z-sharded device mesh; masking and
-    the Tait pressure are applied to the slabs here (elementwise — per-
-    node identical to the single-device path).
-
-    ``actconv``: the [4, nz_local, ny, nx] pure-act convolutions for THIS
-    slab. Defaults to kit.actconv3d (host-precomputed at build_kit); the
-    shard_map wrapper MUST pass its local slice of the global array (a
-    locally-recomputed one would miss cross-shard bonds in B near slab
-    boundaries)."""
-    nz, ny, nx, mx, nxp, F, Fr, pcf, cols, nzb, rows = _geometry_3d(kit)
-
-    pressure = tait_pressure(state.rho, kit)
-    act = (state.node_type != OUTSIDE).astype(jnp.float32)
-    h = halo or {}
-
-    if actconv is None:
-        actconv = (kit.actconv3d if getattr(kit, "actconv3d", None) is not None
-                   and kit.actconv3d.size else
-                   actconv_3d_jnp(kit, state.node_type))
-
-    def masked_halo(key, field_halo):
-        if field_halo is None:
-            return None
-        (alo, ahi) = h["act"]
-        lo, hi = field_halo
-        if key == "p":
-            lo, hi = tait_pressure(lo, kit), tait_pressure(hi, kit)
-        return (lo * alo, hi * ahi)
-
-    args = [
-        _flatten_3d(state.rho * act, kit, nzb, Fr, pcf,
-                    halo=masked_halo("rho", h.get("rho"))),
-        _flatten_3d(state.vel[..., 0] * act, kit, nzb, Fr, pcf,
-                    halo=masked_halo("vx", h.get("vx"))),
-        _flatten_3d(state.vel[..., 1] * act, kit, nzb, Fr, pcf,
-                    halo=masked_halo("vy", h.get("vy"))),
-        _flatten_3d(state.vel[..., 2] * act, kit, nzb, Fr, pcf,
-                    halo=masked_halo("vz", h.get("vz"))),
-        _flatten_3d(pressure * act, kit, nzb, Fr, pcf,
-                    halo=masked_halo("p", h.get("rho"))),
-    ]
-    bargs = [flat3d_center(kit, actconv[k]) for k in range(4)]
-    dt_arr = jnp.asarray(dt, jnp.float32).reshape(1, 1)
-
-    chunks = _group_chunks_3d(kit, _NCH3D)
-    kernel = functools.partial(_ns_kernel_3d, kit, chunks, nzb, Fr, pcf)
-    out_shape = [jax.ShapeDtypeStruct((nzb, Fr), jnp.float32)] * 4
-
-    win = _BZ + 2 * _PRZ
-    blk = pl.BlockSpec((_BZ, Fr), lambda i, c: (i, 0),
-                       memory_space=pltpu.VMEM)
-    with jax.enable_x64(False):  # see ns_step_pallas
-        rho_new, vx, vy, vz = pl.pallas_call(
-            kernel,
-            grid=(nzb // _BZ, len(chunks)),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)]
-            # the 5 big fields stay in HBM; the kernel DMAs its window
-            + [pl.BlockSpec(memory_space=pltpu.ANY)] * 5
-            + [blk] * 4,                                    # B2, Bx, By, Bz
-            out_specs=[blk] * 4,
-            out_shape=out_shape,
-            scratch_shapes=[pltpu.VMEM((win, cols), jnp.float32)] * 5
-            + [pltpu.VMEM((11, _BZ, Fr), jnp.float32)]
-            + [pltpu.SemaphoreType.DMA((5,))],
-            compiler_params=pltpu.CompilerParams(
-                vmem_limit_bytes=100 * 1024 * 1024),
-            interpret=INTERPRET,
-        )(dt_arr, *args, *bargs)
-
-    def unflatten(a):
-        return a[:nz, :F].reshape(nz, ny, nxp)[:, :, mx:mx + nx]
-
-    fluid = state.node_type == FLUID
-    vel_new = jnp.stack(
-        [jnp.where(fluid, unflatten(v), state.vel[..., d])
-         for d, v in enumerate([vx, vy, vz])], axis=-1)
-    return replace(state,
-                   rho=jnp.where(fluid, unflatten(rho_new), state.rho),
-                   vel=vel_new, pressure=pressure)
-
-
-# ---------------------------------------------------------------------------
-# Fused stencil matvec for the implicit transport operator
-# ---------------------------------------------------------------------------
-#
-# The implicit path's hot op is the GMRES matvec y = diag*x + sum_s W_s *
-# shift_s(x) (ops/ard_implicit.matvec_M): 50-200 applications per transport
-# step. x (+ halo) stays resident in VMEM; the per-slot weight stack W
-# ([S, Ny, Nx], frozen per coupling cycle) streams through blocked row
-# slabs — weights need no halo because W_s belongs to the *center* row.
-
-
-def matvec_applicable(kit: Kit) -> bool:
-    if not HAVE_PALLAS or not _on_tpu() or kit.dim != 2 or kit.jdtype != jnp.float32:
-        return False
-    if kit.multi_device:
-        return False  # no SPMD rule for pallas_call (see pallas_applicable)
-    if kit.mext > _PR:
-        return False
-    ny, nx, nyb, nxr, rows, cols = _geometry(kit)
-    # resident: padded x + unknown/diag blocks; W streams per row block
-    return (2 * rows * cols + 3 * nyb * nxr) * 4 <= _VMEM_BUDGET
-
-
-_BY_MV = 64  # smaller slab: the [S, BY, nxr] weight block must fit VMEM
-
-
-def _matvec_kernel(kit: Kit, nxr: int,
-                   x_ref, W_ref, diag_ref, unk_ref, y_out):
-    S = kit.S
-    i = pl.program_id(0)
-    row0 = i * np.int32(_BY_MV)  # i32 under x64
-    win = _BY_MV + 2 * _PR
-
-    x_w = x_ref[pl.ds(row0, win), :]
-
-    def center(a):
-        return a[_PR:_PR + _BY_MV, _PC:_PC + nxr]
-
-    acc = diag_ref[pl.ds(row0, _BY_MV), :] * center(x_w)
-    for s in range(S):
-        dj, di = kit.offsets[s]
-        r = pltpu.roll(x_w, np.int32((-dj) % x_w.shape[0]), 0) if dj else x_w
-        r = pltpu.roll(r, np.int32((-di) % r.shape[1]), 1) if di else r
-        acc += W_ref[s] * center(r)
-
-    unk = unk_ref[pl.ds(row0, _BY_MV), :]
-    y_out[...] = jnp.where(unk, acc, 0.0)
-
-
-@jax.jit
-def matvec_M_pallas(op, kit: Kit, x: jax.Array, halo=None) -> jax.Array:
-    """Fused y = M x (drop-in for ops.ard_implicit.matvec_M, 2D f32).
-
-    ``halo``: optional (lo, hi) axial-neighbor row slabs of x for the
-    shard_map wrapper — W/diag/unknown are center-row quantities and need
-    no halo."""
-    ny, nx, nyb, nxr, rows, cols = _geometry(kit)
-
-    x_p = _pad_aligned(x.astype(jnp.float32), ny, nx, nyb, nxr, halo=halo)
-    pad2 = ((0, nyb - ny), (0, nxr - nx))
-    W = jnp.pad(op.W, ((0, 0),) + pad2)
-    diag = jnp.pad(op.diag, pad2)
-    unk = jnp.pad(op.unknown, pad2, constant_values=False)
-
-    S = kit.S
-    with jax.enable_x64(False):  # see ns_step_pallas
-        y = pl.pallas_call(
-            functools.partial(_matvec_kernel, kit, nxr),
-            grid=(nyb // _BY_MV,),
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.VMEM),                  # x (resident)
-                pl.BlockSpec((S, _BY_MV, nxr), lambda i: (0, i, 0),     # W row slab
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec(memory_space=pltpu.VMEM),                  # diag
-                pl.BlockSpec(memory_space=pltpu.VMEM),                  # unknown
-            ],
-            out_specs=pl.BlockSpec((_BY_MV, nxr), lambda i: (i, 0),
-                                   memory_space=pltpu.VMEM),
-            out_shape=jax.ShapeDtypeStruct((nyb, nxr), jnp.float32),
-            interpret=INTERPRET,
-        )(x_p, W, diag, unk)
-    return y[:ny, :nx]
-
-
-# ---------------------------------------------------------------------------
-# Fused 3D stencil matvec (DMA-windowed, W streamed per slot-chunk)
-# ---------------------------------------------------------------------------
-#
-# The 3D implicit step is GMRES-matvec dominated (~178 slots at 1M+ nodes;
-# round-2 measured 2-3 s/step). The matvec y = diag*x + sum_s W_s*shift_s(x)
-# is pure memory traffic: W is ~750MB at 1M nodes and must stream through
-# once per matvec; x (+halo) is small. Kernel layout mirrors the 3D NS
-# kernel (flattened cross-section; lane rolls for in-plane offsets, sublane
-# slices for dk), with the weight stack DMA'd from HBM in double-buffered
-# slot chunks so compute overlaps the streaming. The weight stack is
-# pre-flattened ONCE per assemble (ImplicitOperator.Wf) — per-matvec
-# flattening would dwarf the matvec itself.
-
-_CHUNK_MV3 = 30   # slots per streamed W chunk (S=178 -> 6 chunks at pad 180)
-_BZ_MV = 8        # z rows per matvec grid step — NOT tied to the NS kernel's
-                  # _BZ: the matvec streams 2 x (_CHUNK_MV3, _BZ_MV, Fr) W
-                  # buffers, so its VMEM need scales with the block size
-                  # (32 would blow the budget and silently fall back to XLA)
-
-
-def matvec3d_applicable(kit: Kit) -> bool:
-    if not HAVE_PALLAS or not _on_tpu() or kit.dim != 3 or kit.jdtype != jnp.float32:
-        return False
-    if kit.multi_device:
-        return False  # no SPMD rule for pallas_call (see pallas_applicable)
-    if kit.mext > _PRZ:
-        return False
-    nz, ny, nx, mx, nxp, F, Fr, pcf, cols, nzb, rows = _geometry_3d(kit)
-    if nz * ny * nx < 100_000:
-        return False
-    win = _BZ_MV + 2 * _PRZ
-    need = (win * cols                      # x window
-            + 2 * _CHUNK_MV3 * _BZ_MV * Fr     # double-buffered W chunks
-            + 4 * _BZ_MV * Fr) * 4             # diag/unk/y blocks + temporaries
-    return need <= _VMEM_BUDGET
-
-
-def _n_chunks_mv3(kit: Kit) -> int:
-    return -(-kit.S // _CHUNK_MV3)
-
-
-def _matvec_kernel_3d(kit: Kit, Fr: int, pcf: int,
-                      x_ref, W_ref, diag_ref, unk_ref, y_out,
-                      x_s, w_s0, w_s1, sems):
-    nxp = kit.shape[2] + 2 * kit.mext
-    S = kit.S
-    n_chunks = _n_chunks_mv3(kit)
-    i = pl.program_id(0)
-    row0 = i * np.int32(_BZ_MV)
-    win = _BZ_MV + 2 * _PRZ
-
-    dma_x = pltpu.make_async_copy(x_ref.at[pl.ds(row0, win), :], x_s,
-                                  sems.at[0])
-    dma_x.start()
-
-    w_bufs = [w_s0, w_s1]
-
-    def w_dma(c):
-        return pltpu.make_async_copy(
-            W_ref.at[pl.ds(np.int32(c * _CHUNK_MV3), _CHUNK_MV3),
-                     pl.ds(row0, _BZ_MV), :],
-            w_bufs[c % 2], sems.at[1 + (c % 2)])
-
-    d0 = w_dma(0)
-    d0.start()
-    dma_x.wait()
-
-    acc = diag_ref[...] * x_s[_PRZ:_PRZ + _BZ_MV, pcf:pcf + Fr]
-
-    pending = d0
-    for c in range(n_chunks):
-        pending.wait()
-        if c + 1 < n_chunks:
-            pending = w_dma(c + 1)
-            pending.start()
-        wb = w_bufs[c % 2]
-        for k in range(_CHUNK_MV3):
-            s = c * _CHUNK_MV3 + k
-            if s >= S:
-                break
-            dk, dj, di = kit.offsets[s]
-            f = dj * nxp + di
-            slab = x_s[_PRZ + dk:_PRZ + dk + _BZ_MV, :]
-            if f:
-                slab = pltpu.roll(slab, np.int32((-f) % slab.shape[1]), 1)
-            # astype is a no-op for the f32 stream; upcasts the bf16 one
-            acc += wb[k].astype(jnp.float32) * slab[:, pcf:pcf + Fr]
-
-    y_out[...] = jnp.where(unk_ref[...], acc, 0.0)
-
-
-def flatten_W_3d(W: jax.Array, kit: Kit) -> jax.Array:
-    """[S, Nz, Ny, Nx] -> [S_pad, nzb, Fr] center-value lane layout (margin
-    lanes zero), padded to a whole number of streamed chunks."""
-    nz, ny, nx, mx, nxp, F, Fr, pcf, cols, nzb, rows = _geometry_3d(kit)
-    S = kit.S
-    S_pad = _n_chunks_mv3(kit) * _CHUNK_MV3
-    Wp = jnp.pad(W.astype(jnp.float32),
-                 ((0, S_pad - S), (0, 0), (0, 0), (mx, mx)))
-    Wp = Wp.reshape(S_pad, nz, ny * nxp)
-    return jnp.pad(Wp, ((0, 0), (0, nzb - nz), (0, Fr - ny * nxp)))
-
-
-def flat3d_x(kit: Kit, a: jax.Array, fill=0.0) -> jax.Array:
-    """Field [Nz,Ny,Nx] -> the 3D kernels' windowed (rows, cols) x layout."""
-    nz, ny, nx, mx, nxp, F, Fr, pcf, cols, nzb, rows = _geometry_3d(kit)
-    return _flatten_3d(a.astype(jnp.float32), kit, nzb, Fr, pcf, fill)
-
-
-def flat3d_center(kit: Kit, a: jax.Array, fill=0.0) -> jax.Array:
-    """Field [Nz,Ny,Nx] -> the margin-free (nzb, Fr) center layout."""
-    nz, ny, nx, mx, nxp, F, Fr, pcf, cols, nzb, rows = _geometry_3d(kit)
-    a = jnp.pad(a, ((0, 0), (0, 0), (mx, mx)), constant_values=fill)
-    a = a.reshape(nz, ny * nxp)
-    return jnp.pad(a, ((0, nzb - nz), (0, Fr - ny * nxp)),
-                   constant_values=fill)
-
-
-def flat3d_pad_center(kit: Kit, y: jax.Array, fill=0.0) -> jax.Array:
-    """(nzb, Fr) center layout -> (rows, cols) windowed layout (aligned pad:
-    _PRZ is sublane-aligned and pcf is a lane multiple)."""
-    nz, ny, nx, mx, nxp, F, Fr, pcf, cols, nzb, rows = _geometry_3d(kit)
-    return jnp.pad(y, ((_PRZ, _PRZ), (pcf, cols - pcf - Fr)),
-                   constant_values=fill)
-
-
-def flat3d_unx(kit: Kit, y: jax.Array) -> jax.Array:
-    """(nzb, Fr) center layout -> field [Nz,Ny,Nx]."""
-    nz, ny, nx, mx, nxp, F, Fr, pcf, cols, nzb, rows = _geometry_3d(kit)
-    return y[:nz, :ny * nxp].reshape(nz, ny, nxp)[:, :, mx:mx + nx]
-
-
-def flat3d_unx_win(kit: Kit, x_p: jax.Array) -> jax.Array:
-    """(rows, cols) windowed layout -> field [Nz,Ny,Nx]."""
-    nz, ny, nx, mx, nxp, F, Fr, pcf, cols, nzb, rows = _geometry_3d(kit)
-    return (x_p[_PRZ:_PRZ + nz, pcf:pcf + ny * nxp]
-            .reshape(nz, ny, nxp)[:, :, mx:mx + nx])
-
-
-def matvec_M_pallas_3d_core(op, kit: Kit, x_p: jax.Array,
-                            w_stream: jax.Array | None = None) -> jax.Array:
-    """y = M x with x already in the (rows, cols) windowed layout; returns
-    the (nzb, Fr) center layout. Requires op.Wf/diag_f/unk_f (assemble
-    precomputes them when applicable) so a GMRES solve can chain matvecs
-    with zero layout conversions.
-
-    ``w_stream`` overrides the weight stack (default op.Wf): passing the
-    bf16 copy (op.Wf16) halves the dominant HBM stream. Only valid where a
-    ~4e-3-relative operator is acceptable — i.e. inside a preconditioner,
-    whose accuracy affects GMRES convergence speed but never the answer."""
-    nz, ny, nx, mx, nxp, F, Fr, pcf, cols, nzb, rows = _geometry_3d(kit)
-    W = op.Wf if w_stream is None else w_stream
-
-    win = _BZ_MV + 2 * _PRZ
-    with jax.enable_x64(False):  # see ns_step_pallas
-        y = pl.pallas_call(
-            functools.partial(_matvec_kernel_3d, kit, Fr, pcf),
-            grid=(nzb // _BZ_MV,),
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.ANY),   # x (HBM, windowed)
-                pl.BlockSpec(memory_space=pltpu.ANY),   # Wf (HBM, streamed)
-                pl.BlockSpec((_BZ_MV, Fr), lambda i: (i, 0),
-                             memory_space=pltpu.VMEM),  # diag
-                pl.BlockSpec((_BZ_MV, Fr), lambda i: (i, 0),
-                             memory_space=pltpu.VMEM),  # unknown
-            ],
-            out_specs=pl.BlockSpec((_BZ_MV, Fr), lambda i: (i, 0),
-                                   memory_space=pltpu.VMEM),
-            out_shape=jax.ShapeDtypeStruct((nzb, Fr), jnp.float32),
-            scratch_shapes=[
-                pltpu.VMEM((win, cols), jnp.float32),
-                pltpu.VMEM((_CHUNK_MV3, _BZ_MV, Fr), W.dtype),
-                pltpu.VMEM((_CHUNK_MV3, _BZ_MV, Fr), W.dtype),
-                pltpu.SemaphoreType.DMA((3,)),
-            ],
-            compiler_params=pltpu.CompilerParams(
-                vmem_limit_bytes=48 * 1024 * 1024),
-            interpret=INTERPRET,
-        )(x_p, W, op.diag_f, op.unk_f)
-    return y
-
-
-@jax.jit
-def matvec_M_pallas_3d(op, kit: Kit, x: jax.Array, halo=None) -> jax.Array:
-    """Fused y = M x (drop-in for ops.ard_implicit.matvec_M, 3D f32).
-    Requires op.Wf (assemble pre-flattens it when applicable).
-
-    ``halo``: optional (lo, hi) z-plane slabs of x (shard_map wrapper)."""
-    nz, ny, nx, mx, nxp, F, Fr, pcf, cols, nzb, rows = _geometry_3d(kit)
-    if op.diag_f is None:  # hand-built operator (tests/validation harness)
-        op = replace(op, diag_f=flat3d_center(kit, op.diag.astype(jnp.float32)),
-                     unk_f=flat3d_center(kit, op.unknown, False))
-    x_p = _flatten_3d(x.astype(jnp.float32), kit, nzb, Fr, pcf, halo=halo)
-    return flat3d_unx(kit, matvec_M_pallas_3d_core(op, kit, x_p))
-
-
-# ---------------------------------------------------------------------------
-# Double-single (compensated-f32) 3D stencil matvec for the refinement path
-# ---------------------------------------------------------------------------
-#
-# The mixed-precision iterative refinement in ops/ard_implicit.implicit_step
-# needs the residual r = b - (I - dt*M) x to ~1e-10 relative — below what a
-# plain f32 matvec can deliver (it floors at ~S*eps32 ~ 1e-5..1e-4 at stiff
-# dt). The previous implementation cast W to f64 and ran the XLA scan
-# matvec under TPU f64 *emulation*, which both re-streams W at twice the
-# bytes and pays the software-f64 multiply cost on every term. This kernel
-# instead computes sum_s W_s * x_s in double-single arithmetic on native
-# f32 hardware: the product W*x_hi is made exact with Dekker two-prod (no
-# hardware FMA on the VPU, so operands are split at 2^12+1), the W*x_lo
-# term carries x's low half, and slot accumulation is compensated with
-# Knuth two-sum. The result (y_hi, y_lo) satisfies
-# |y_hi + y_lo - sum_s W_s x_s| ~ O(S * eps32^2) ~ 1e-12 relative — well
-# below the refinement tolerance — while streaming W once in f32 exactly
-# like the fast matvec. The diag term and the outer (b - x + dt*M x)
-# combination stay in (cheap, elementwise) emulated f64 outside the kernel.
-
-_SPLIT_F32 = 4097.0   # 2^ceil(24/2) + 1, Dekker splitter for f32
-
-
-def _matvec_kernel_3d_ds(kit: Kit, Fr: int, pcf: int,
-                         xh_ref, xl_ref, W_ref, yh_out, yl_out,
-                         xh_s, xl_s, w_s0, w_s1, sems):
-    nxp = kit.shape[2] + 2 * kit.mext
-    S = kit.S
-    n_chunks = _n_chunks_mv3(kit)
-    i = pl.program_id(0)
-    row0 = i * np.int32(_BZ_MV)
-    win = _BZ_MV + 2 * _PRZ
-
-    dma_xh = pltpu.make_async_copy(xh_ref.at[pl.ds(row0, win), :], xh_s,
-                                   sems.at[0])
-    dma_xh.start()
-    dma_xl = pltpu.make_async_copy(xl_ref.at[pl.ds(row0, win), :], xl_s,
-                                   sems.at[3])
-    dma_xl.start()
-
-    w_bufs = [w_s0, w_s1]
-
-    def w_dma(c):
-        return pltpu.make_async_copy(
-            W_ref.at[pl.ds(np.int32(c * _CHUNK_MV3), _CHUNK_MV3),
-                     pl.ds(row0, _BZ_MV), :],
-            w_bufs[c % 2], sems.at[1 + (c % 2)])
-
-    d0 = w_dma(0)
-    d0.start()
-    dma_xh.wait()
-    dma_xl.wait()
-
-    acc_hi = jnp.zeros((_BZ_MV, Fr), jnp.float32)
-    acc_lo = jnp.zeros((_BZ_MV, Fr), jnp.float32)
-
-    pending = d0
-    for c in range(n_chunks):
-        pending.wait()
-        if c + 1 < n_chunks:
-            pending = w_dma(c + 1)
-            pending.start()
-        wb = w_bufs[c % 2]
-        for k in range(_CHUNK_MV3):
-            s = c * _CHUNK_MV3 + k
-            if s >= S:
-                break
-            dk, dj, di = kit.offsets[s]
-            f = dj * nxp + di
-            slab_h = xh_s[_PRZ + dk:_PRZ + dk + _BZ_MV, :]
-            slab_l = xl_s[_PRZ + dk:_PRZ + dk + _BZ_MV, :]
-            if f:
-                r = np.int32((-f) % slab_h.shape[1])
-                slab_h = pltpu.roll(slab_h, r, 1)
-                slab_l = pltpu.roll(slab_l, r, 1)
-            xh = slab_h[:, pcf:pcf + Fr]
-            xl = slab_l[:, pcf:pcf + Fr]
-            w = wb[k]
-
-            # Dekker two-prod: p + err == w * xh exactly (no VPU FMA)
-            cw = w * _SPLIT_F32
-            w_hi = cw - (cw - w)
-            w_lo = w - w_hi
-            cx = xh * _SPLIT_F32
-            x_hi = cx - (cx - xh)
-            x_lo = xh - x_hi
-            p = w * xh
-            err = ((w_hi * x_hi - p) + w_hi * x_lo + w_lo * x_hi) \
-                + w_lo * x_lo
-            # carry x's low half (error O(eps32^2) relative, negligible)
-            err = err + w * xl
-
-            # Knuth two-sum: s2 + e == acc_hi + p exactly
-            s2 = acc_hi + p
-            bb = s2 - acc_hi
-            e = (acc_hi - (s2 - bb)) + (p - bb)
-            acc_hi = s2
-            acc_lo = acc_lo + (e + err)
-
-    yh_out[...] = acc_hi
-    yl_out[...] = acc_lo
-
-
-@jax.jit
-def matvec_slots_pallas_3d_ds(op, kit: Kit, x_hi: jax.Array,
-                              x_lo: jax.Array):
-    """(y_hi, y_lo) ~= sum_s W_s * shift_s(x_hi + x_lo) to ~eps32^2.
-
-    Slot sum ONLY — no diag term, no unknown mask (both are applied by the
-    caller in f64, where they are cheap elementwise ops). Requires op.Wf."""
-    nz, ny, nx, mx, nxp, F, Fr, pcf, cols, nzb, rows = _geometry_3d(kit)
-
-    xh_p = _flatten_3d(x_hi.astype(jnp.float32), kit, nzb, Fr, pcf)
-    xl_p = _flatten_3d(x_lo.astype(jnp.float32), kit, nzb, Fr, pcf)
-
-    win = _BZ_MV + 2 * _PRZ
-    with jax.enable_x64(False):  # see ns_step_pallas
-        yh, yl = pl.pallas_call(
-            functools.partial(_matvec_kernel_3d_ds, kit, Fr, pcf),
-            grid=(nzb // _BZ_MV,),
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.ANY),   # x_hi (HBM, windowed)
-                pl.BlockSpec(memory_space=pltpu.ANY),   # x_lo (HBM, windowed)
-                pl.BlockSpec(memory_space=pltpu.ANY),   # Wf (HBM, streamed)
-            ],
-            out_specs=[pl.BlockSpec((_BZ_MV, Fr), lambda i: (i, 0),
-                                    memory_space=pltpu.VMEM)] * 2,
-            out_shape=[jax.ShapeDtypeStruct((nzb, Fr), jnp.float32)] * 2,
-            scratch_shapes=[
-                pltpu.VMEM((win, cols), jnp.float32),
-                pltpu.VMEM((win, cols), jnp.float32),
-                pltpu.VMEM((_CHUNK_MV3, _BZ_MV, Fr), jnp.float32),
-                pltpu.VMEM((_CHUNK_MV3, _BZ_MV, Fr), jnp.float32),
-                pltpu.SemaphoreType.DMA((4,)),
-            ],
-            compiler_params=pltpu.CompilerParams(
-                vmem_limit_bytes=48 * 1024 * 1024),
-            interpret=INTERPRET,
-        )(xh_p, xl_p, op.Wf)
-
-    def unflatten(a):
-        return a[:nz, :ny * nxp].reshape(nz, ny, nxp)[:, :, mx:mx + nx]
-
-    return unflatten(yh), unflatten(yl)
-
-
-# ---------------------------------------------------------------------------
-# Fused explicit-ARD bond kernel (2D structured)
-# ---------------------------------------------------------------------------
-#
-# Same roll-with-aligned-margins strategy as the NS kernel. Per-node
-# quantities that depend only on node data (fluid-like/solid masks, the
-# decayed solid-side micro-diffusivity, the salt-block flag, |v|) are
-# precomputed in XLA and streamed as fields; the kernel fuses the
-# bi-material bond classification + diffusion/advection sums
-# (pd_ard.cpp:81-191) over all stencil slots in one pass per row block.
-
-
-def ard_applicable(kit: Kit) -> bool:
-    if not HAVE_PALLAS or not _on_tpu() or kit.dim != 2 or kit.jdtype != jnp.float32:
-        return False
-    if kit.multi_device:
-        return False  # no SPMD rule for pallas_call (see pallas_applicable)
-    if kit.mext > _PR:
-        return False
-    ny, nx, nyb, nxr, rows, cols = _geometry(kit)
-    if ny * nx < 100_000:
-        return False
-    return (9 * rows * cols + 4 * nyb * nxr) * 4 <= _VMEM_BUDGET
-
-
-def _ard_kernel(kit: Kit, nyb: int, nxr: int, dt_ref,
-                C_ref, vx_ref, vy_ref, vm_ref, jf_ref, js_ref, tv_ref,
-                Ds_ref, bl_ref, fi_ref, si_ref, C_out):
-    cfg = kit.cfg
-    i = pl.program_id(0)
-    row0 = i * np.int32(_BY)
-    win = _BY + 2 * _PR
-
-    w = {k: r[pl.ds(row0, win), :] for k, r in [
-        ("C", C_ref), ("vm", vm_ref), ("jf", jf_ref), ("js", js_ref),
-        ("tv", tv_ref), ("Ds", Ds_ref), ("bl", bl_ref)]}
-
-    def center(a):
-        return a[_PR:_PR + _BY, _PC:_PC + nxr]
-
-    C_i = center(w["C"])
-    # dedicated center masks (fi = FLUID, si = SOLID): jf conflates
-    # FLUID with INLET/OUTLET/FICTITIOUS for the neighbor side
-    fi = fi_ref[pl.ds(row0, _BY), :]
-    si = si_ref[pl.ds(row0, _BY), :]
-    # center |v| is fluid-masked, the neighbor side uses the raw field
-    # (pd_ard.cpp:164-170 semantics: vmag_i masked, vmag_j not)
-    vm_i = center(w["vm"]) * fi
-    Ds_i = center(w["Ds"])
-    bl_i = center(w["bl"])
-    vx_i = center(vx_ref[pl.ds(row0, win), :])
-    vy_i = center(vy_ref[pl.ds(row0, win), :])
-
-    zero = jnp.zeros((_BY, nxr), jnp.float32)
-    diff_sum = zero
-    adv_sum = zero
-    beta_i = kit.beta_lap
-
-    for s, xi, e_ij, vol in kit.bond_iter():
-        dj, di = kit.offsets[s]
-
-        def sh(key):
-            a = w[key]
-            r = pltpu.roll(a, np.int32((-dj) % a.shape[0]), 0) if dj else a
-            r = pltpu.roll(r, np.int32((-di) % r.shape[1]), 1) if di else r
-            return center(r)
-
-        V_j = vol * sh("tv")
-        C_j = sh("C")
-        jf = sh("jf")
-        js = sh("js")
-
-        ll = fi * jf
-        ss = si * js
-        iface = fi * js + si * jf
-
-        Ds_j = sh("Ds")
-        solid_D = si * Ds_i + (1.0 - si) * Ds_j
-        blocked = si * bl_i + (1.0 - si) * sh("bl")
-        D_iface = (1.0 - blocked) * (
-            2.0 * cfg.D_liquid * solid_D / (cfg.D_liquid + solid_D + 1e-30))
-        D_avg = ll * cfg.D_liquid + iface * D_iface
-
-        D_art = ll * (cfg.alpha_art_diff
-                      * jnp.maximum(vm_i, sh("vm")) * cfg.dx)
-
-        inv_xi = 1.0 / xi
-        inv_xi2 = inv_xi * inv_xi
-        dC = C_j - C_i
-
-        diff_sum += beta_i * (D_avg + D_art) * dC * inv_xi2 * V_j * (1.0 - ss)
-        v_dot_e = vx_i * e_ij[0] + vy_i * e_ij[1]
-        adv_sum += ll * dC * v_dot_e * inv_xi * V_j
-
-    dt = dt_ref[0, 0]
-    div_coeff = kit.alpha / kit.V_H
-    C_new = jnp.maximum(C_i + dt * (diff_sum - div_coeff * adv_sum), 0.0)
-    active = fi + si
-    C_out[pl.ds(row0, _BY), :] = active * C_new + (1.0 - active) * C_i
-
-
-@jax.jit
-def ard_step_pallas(state: State, kit: Kit, dt,
-                    volume_loss_fraction=0.0) -> State:
-    """Drop-in replacement for ops.ard.ard_step (2D f32 structured)."""
-    from .grid import FICTITIOUS, INLET, OUTLET, SOLID_MG, WALL
-    from .ops.ard import compute_salt_blocked
-
-    cfg = kit.cfg
-    ny, nx, nyb, nxr, rows, cols = _geometry(kit)
-    nt = state.node_type
-    fi = nt == FLUID
-    si = nt == SOLID_MG
-
-    salt = compute_salt_blocked(state, kit)
-    from .ops.ard import micro_d_factor
-    decay = micro_d_factor(cfg, volume_loss_fraction, jnp.float32)
-    Ds = jnp.where(state.is_gb, cfg.D_gb,
-                   jnp.where(state.is_precip, cfg.D_precip,
-                             cfg.D_grain)) * decay
-    vel_f = jnp.where(fi[..., None], state.vel, 0.0)
-    vmag = jnp.linalg.norm(state.vel, axis=-1)
-    jf = ((nt == FLUID) | (nt == INLET) | (nt == OUTLET)
-          | (nt == FICTITIOUS)).astype(jnp.float32)
-    js = si.astype(jnp.float32)
-    tv = ((nt != WALL) & (nt != OUTSIDE)).astype(jnp.float32)
-
-    def pad(a, fill=0.0):
-        return _pad_aligned(a.astype(jnp.float32), ny, nx, nyb, nxr, fill)
-
-    args = [pad(state.C), pad(vel_f[..., 0]), pad(vel_f[..., 1]),
-            pad(vmag), pad(jf), pad(js), pad(tv),
-            pad(Ds), pad(salt.astype(jnp.float32))]
-    fi_a = jnp.pad(fi.astype(jnp.float32), ((0, nyb - ny), (0, nxr - nx)))
-    si_a = jnp.pad(si.astype(jnp.float32), ((0, nyb - ny), (0, nxr - nx)))
-    dt_arr = jnp.asarray(dt, jnp.float32).reshape(1, 1)
-
-    kernel = functools.partial(_ard_kernel, kit, nyb, nxr)
-    with jax.enable_x64(False):  # see ns_step_pallas
-        C_new = pl.pallas_call(
-            kernel,
-            grid=(nyb // _BY,),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)]
-            + [pl.BlockSpec(memory_space=pltpu.VMEM)] * 11,
-            out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-            out_shape=jax.ShapeDtypeStruct((nyb, nxr), jnp.float32),
-            interpret=INTERPRET,
-        )(dt_arr, *args, fi_a, si_a)
-
-    return replace(state, C=C_new[:ny, :nx])
-
-
-def ard_step_auto(state: State, kit: Kit, dt, volume_loss_fraction=0.0) -> State:
-    """Pallas explicit-ARD kernel when applicable, XLA form otherwise."""
-    from .ops.ard import ard_step as ard_step_xla
-    if ard_applicable(kit):
-        return ard_step_pallas(state, kit, dt, volume_loss_fraction)
-    return ard_step_xla(state, kit, dt, volume_loss_fraction)
-
-
-# ---------------------------------------------------------------------------
-# GMRES Krylov-basis primitives (flat [m+1, R, 128] basis, streamed once)
-# ---------------------------------------------------------------------------
-#
-# The CGS2 orthogonalization in ops/gmres.py is two whole-basis contractions
-# per Arnoldi step. XLA runs both at ~17 GB/s on the (m+1, *field) basis
-# (scripts/profile_orthon.py: 6.2-6.9 ms per pass over a 110MB basis at the
-# 1M-node flagship shape; an MXU matvec on a flattened basis is no faster),
-# an order of magnitude below the HBM rate the streamed matvec kernels
-# sustain. These two kernels stream the basis exactly once per pass in
-# (m+1, _BR_GB, 128) blocks.
-
-_BR_GB = 256   # default sublane rows per grid step at L=128 lanes
-
-
-def gmres_basis_ok(kit, n: int) -> bool:
-    """Gate for the flat-basis GMRES kernels (any backend's kit).
-
-    Mirrors the other kernel gates: TPU only (Mosaic), f32 vectors only,
-    single device only (pallas_call has no SPMD partitioning rule), and
-    large enough that the pad/launch overhead is amortized.
-    """
-    if not HAVE_PALLAS or not _on_tpu():
-        return False
-    if getattr(kit, "multi_device", False):
-        return False
-    if kit.jdtype != jnp.float32:
-        return False
-    return n >= 100_000
-
-
-def basis_shape_ok(shape) -> bool:
-    """True when vectors of this shape can feed the basis kernels directly:
-    2D, lane dim a multiple of 128, both dims divisible by a usable block."""
-    if len(shape) != 2:
-        return False
-    Z, C = shape
-    return C % 128 == 0 and _basis_blocks(Z, C) is not None
-
-
-def _basis_blocks(Z: int, C: int, m1: int = 26):
-    """Largest (bz, bc) with bz | Z (multiple of 8), bc | C (multiple of
-    128) and the (m1, bz, bc) f32 block under ~3.5MB — the pipeline
-    double-buffers both inputs, and the default scoped-VMEM stack limit is
-    ~31MB (a 4.9MB block OOMed)."""
-    budget = (3.5 * 1024 * 1024) // (m1 * 4)
-    best = None
-    for bz in range(8, Z + 1, 8):
-        if Z % bz:
-            continue
-        for bc in range(128, C + 1, 128):
-            if C % bc or bz * bc > budget:
-                continue
-            if best is None or bz * bc > best[0] * best[1]:
-                best = (bz, bc)
-    return best
-
-
-def _basis_dots_kernel(V_ref, w_ref, out_ref):
-    zi = pl.program_id(1)  # z blocks iterate fastest (out revisited per c)
-
-    @pl.when(zi == 0)
-    def _init():
-        out_ref[...] = jnp.zeros_like(out_ref)
-
-    out_ref[...] += jnp.sum(V_ref[...] * w_ref[...], axis=1, keepdims=True)
-
-
-def basis_dots_pallas(V2: jax.Array, w2: jax.Array, sdt) -> jax.Array:
-    """c[k] = <V2[k], w2> for the whole Krylov basis in one streamed pass.
-
-    V2: (M1, Z, C) f32, w2: (1, Z, C) f32 -> (M1,) in sdt, with (Z, C)
-    divisible by the chosen blocks. Zero padding rows contribute zero.
-    Per-lane partials accumulate in f32 on device; the final C-lane combine
-    runs in sdt on XLA (relative error ~1e-6 — far below what CGS2's full
-    reorthogonalization pass tolerates).
-    """
-    M1, Z, C = V2.shape
-    bz, bc = _basis_blocks(Z, C, M1)
-    with jax.enable_x64(False):  # see ns_step_pallas
-        out = pl.pallas_call(
-            _basis_dots_kernel,
-            grid=(C // bc, Z // bz),
-            in_specs=[
-                pl.BlockSpec((M1, bz, bc), lambda c, z: (0, z, c),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, bz, bc), lambda c, z: (0, z, c),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec((M1, 1, bc), lambda c, z: (0, 0, c),
-                                   memory_space=pltpu.VMEM),
-            out_shape=jax.ShapeDtypeStruct((M1, 1, C), jnp.float32),
-            interpret=INTERPRET,
-        )(V2, w2)
-    return jnp.sum(out[:, 0, :].astype(sdt), axis=-1)
-
-
-def basis_norm_pallas(w2: jax.Array, sdt) -> jax.Array:
-    """||w2|| via a single streamed self-dot (XLA reductions over the same
-    array measured 3.2 ms at the 1M flagship shape vs ~0.1 ms here)."""
-    return jnp.sqrt(basis_dots_pallas(w2[None], w2[None], sdt)[0])
-
-
-def _basis_axpy_kernel(M1, c_ref, V_ref, w_ref, out_ref):
-    acc = w_ref[0]
-    for k in range(M1):
-        acc = acc - c_ref[k] * V_ref[k]
-    out_ref[0] = acc
-
-
-def basis_axpy_pallas(c: jax.Array, V2: jax.Array, w2: jax.Array) -> jax.Array:
-    """w2 - sum_k c[k] * V2[k] in one streamed pass over the basis.
-
-    c: (M1,), V2: (M1, Z, C) f32, w2: (1, Z, C) f32 -> (1, Z, C) f32.
-    Serves both the CGS recombination (c = projection coefficients) and the
-    solution update (w2 = 0, c = -y).
-    """
-    M1, Z, C = V2.shape
-    bz, bc = _basis_blocks(Z, C, M1)
-    with jax.enable_x64(False):  # see ns_step_pallas
-        out = pl.pallas_call(
-            functools.partial(_basis_axpy_kernel, M1),
-            grid=(C // bc, Z // bz),
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.SMEM),   # c
-                pl.BlockSpec((M1, bz, bc), lambda c, z: (0, z, c),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, bz, bc), lambda c, z: (0, z, c),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec((1, bz, bc), lambda c, z: (0, z, c),
-                                   memory_space=pltpu.VMEM),
-            out_shape=jax.ShapeDtypeStruct((1, Z, C), jnp.float32),
-            interpret=INTERPRET,
-        )(c.astype(jnp.float32), V2, w2)
-    return out
+    N = x.size
+    y = pl.pallas_call(
+        partial(_matvec_kernel, kit, MV_BLOCK, MV_UNROLL),
+        out_shape=jax.ShapeDtypeStruct((N,), jnp.float32),
+        grid=(pl.cdiv(N, MV_BLOCK),),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=MV_WARPS),
+        interpret=interpret,
+        name="implicit_matvec_3d",
+    )(_slot_tables(kit)[0], kit.pad(x, 0.0).ravel(), op.W.reshape(kit.S, N),
+      op.diag.ravel())
+    return jnp.where(op.unknown, y.reshape(kit.shape), 0.0)

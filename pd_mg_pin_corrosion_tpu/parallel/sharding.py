@@ -1,13 +1,13 @@
 """Multi-chip scale-out: spatial domain decomposition over a device mesh.
 
 The reference is a single-process OpenMP code with no distributed backend
-(SURVEY §2 parallelism inventory). The TPU-native scale-out story: shard
+(SURVEY §2 parallelism inventory). The scale-out here: shard
 every per-node field along the *axial* array axis (axis 0: y in 2D, z in 3D)
 across a 1-D mesh. Because all PD bond kernels are stencil shifts
 (pad + static slice), XLA's SPMD partitioner lowers the horizon-wide
-neighbor reads into halo exchanges over ICI automatically — the PD horizon
-delta = m*dx bounds the halo at m+1 lattice layers, so communication is a
-fixed-size neighbor exchange per step, exactly the pattern ICI is built for.
+neighbor reads into halo exchanges between devices automatically — the
+PD horizon delta = m*dx bounds the halo at m+1 lattice layers, so
+communication is a fixed-size neighbor exchange per step.
 
 Reductions (convergence eps, v_max, diagnostics) become XLA all-reduces.
 No code changes in the physics: the same jitted functions run single-chip
@@ -29,23 +29,17 @@ AXIS = "axial"
 
 
 def make_mesh(n_devices: int | None = None, devices=None) -> Mesh:
-    """1-D mesh over the axial spatial axis.
-
-    Prefers the default backend; if it has fewer than ``n_devices`` devices,
-    falls back to the (virtual) CPU backend so multi-chip shardings can be
-    validated on one host (xla_force_host_platform_device_count).
-    """
+    """1-D mesh over the axial spatial axis, on the default backend's
+    devices. Raises when the backend has fewer than ``n_devices``: a CPU
+    mesh is never swapped in (the tests give the CPU backend virtual
+    devices through xla_force_host_platform_device_count)."""
     if devices is None:
         devices = jax.devices()
         if n_devices is not None and len(devices) < n_devices:
-            cpu = jax.devices("cpu")
-            if len(cpu) >= n_devices:
-                devices = cpu
-        devices = devices[: n_devices or len(devices)]
-        if n_devices is not None and len(devices) < n_devices:
             raise ValueError(
-                f"requested {n_devices} devices, only {len(devices)} available"
-            )
+                f"requested {n_devices} devices, the "
+                f"{jax.default_backend()} backend has {len(devices)}")
+        devices = devices[: n_devices or len(devices)]
     return Mesh(np.asarray(devices), (AXIS,))
 
 
@@ -80,7 +74,6 @@ def shard_kit(kit, mesh: Mesh):
     return dataclasses.replace(
         kit,
         multi_device=True,  # static: routes dispatch off single-device kernels
-        mesh=mesh,          # lets dispatch pick the shard_map Pallas paths
         inlet_mask=put(kit.inlet_mask, P(AXIS, None)),
         outlet_mask=put(kit.outlet_mask, P(AXIS, None)),
         wall_mask=put(kit.wall_mask, P(AXIS, None)),
@@ -88,7 +81,4 @@ def shard_kit(kit, mesh: Mesh):
         near_outlet_mask=put(kit.near_outlet_mask, P(AXIS, None)),
         v_pois=put(kit.v_pois, P(AXIS, None)),
         initial_solid_mask=put(kit.initial_solid_mask, P(AXIS, None)),
-        # [4, Nz, Ny, Nx] — axial axis is axis 1; empty [(0,)] in 2D
-        actconv3d=(put(kit.actconv3d, P(None, AXIS))
-                   if kit.actconv3d.ndim == 4 else kit.actconv3d),
     )

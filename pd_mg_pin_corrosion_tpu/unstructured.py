@@ -536,8 +536,6 @@ def implicit_step(state: State, op: ImplicitOperatorU, kit: UKit, dt,
         return y
 
     from .ops.gmres import gmres
-    from .pallas_kernels import gmres_basis_ok
-    flat = gmres_basis_ok(kit, C_old.size)
 
     b = jnp.where(op.fict, 0.0, C_old)
     # optional Krylov-saving initial guess (see ops/ard_implicit): clamped
@@ -545,7 +543,7 @@ def implicit_step(state: State, op: ImplicitOperatorU, kit: UKit, dt,
     x0 = C_old if x0 is None else jnp.where(
         op.unknown, jnp.clip(x0, 0.0, cfg.C_solid_init), C_old)
     x, (res, _cycles) = gmres(A, b, x0, tol=inner_tol, restart=restart,
-                              maxiter=maxiter, M=precond, flat_kernels=flat)
+                              maxiter=maxiter, M=precond)
 
     if refine:
         f64 = jnp.float64
@@ -574,7 +572,7 @@ def implicit_step(state: State, op: ImplicitOperatorU, kit: UKit, dt,
                              1e-4, 0.5)
             e, _ = gmres(A, r64.astype(kit.jdtype),
                          jnp.zeros_like(x), tol=tol_c, restart=restart,
-                         maxiter=restart * 2, M=precond, flat_kernels=flat)
+                         maxiter=restart * 2, M=precond)
             x64n = x64 + e.astype(f64)
             r64n = b64 - A64(x64n)
             resn = jnp.linalg.norm(r64n.ravel()) / b_norm

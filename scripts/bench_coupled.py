@@ -1,7 +1,7 @@
 """Coupled-step timing at ~1M nodes for the BASELINE '>= 30x vs 64-thread
 OpenMP' comparison.
 
-Times, on the real TPU at the bench geometry (2D, dx=1um, ~0.9M nodes,
+Times, on the device JAX finds, at the bench geometry (2D, dx=1um, ~0.9M nodes,
 baseline physics):
   - one steady-flow iteration (BCs + ns_step + wall BC), amortized in a
     fused device loop

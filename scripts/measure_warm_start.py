@@ -9,7 +9,7 @@ script times BOTH paths end-to-end (coarse solve + interpolation
 included in the warm figure) under the production convergence gate and
 checks the two converged fields agree.
 
-Usage: python scripts/measure_warm_start.py [config]   (TPU host, alone)
+Usage: python scripts/measure_warm_start.py [config]   (on the GPU, alone)
 Default config: config/params_3d.cfg. AMR configs (e.g. params_amr.cfg)
 use the block backend, where the initial solve is ~25 % of the run wall.
 """
@@ -31,11 +31,8 @@ def main() -> int:
     jax.config.update("jax_enable_x64", True)
     # same persistent compile cache as cli.py — without it the big solve
     # graphs recompile from scratch (~minutes each) and poison wall timings
-    cache_dir = os.environ.get("PD_TPU_CACHE",
-                               os.path.expanduser("~/.pd_tpu_jit_cache"))
-    if cache_dir:
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
+    from pd_mg_pin_corrosion_tpu.utils import setup_compile_cache
+    setup_compile_cache()
 
     from pd_mg_pin_corrosion_tpu.config import Config
     from pd_mg_pin_corrosion_tpu.fields import initialize_state

@@ -4,7 +4,7 @@ The staircase (nearest-node) 3D FNM wall mirror sustains a per-step
 velocity limit cycle (~6e-4 at 1M nodes) that keeps the 3D steady-flow
 solve from ever meeting flow_conv_tol — production runs fall back to
 iteration caps. The sub-cell mirror (wall_mirror_subcell=1, bilinear
-weights of the reflected point in the same MXU operator) removes the
+weights of the reflected point in the same matmul operator) removes the
 leading-order wall error; this script runs the SAME steady solve both
 ways and records the eps trajectory + the converged/capped outcome.
 

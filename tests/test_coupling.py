@@ -248,7 +248,7 @@ def test_resume_in_place_preserves_history(tmp_path):
 
 
 def test_forced_resume_still_checks_grid(tmp_path):
-    """PD_TPU_RESUME_FORCE downgrades a config mismatch to a warning but a
+    """PD_RESUME_FORCE downgrades a config mismatch to a warning but a
     grid mismatch stays fatal (ADVICE r2: the force path must not silently
     resume onto a different grid)."""
     from pd_mg_pin_corrosion_tpu.checkpoint import (cfg_items_json,

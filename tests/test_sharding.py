@@ -212,7 +212,7 @@ def test_sharded_fused_cycles_matches_single_device(tmp_path):
 
 def test_sharded_3d_step_matches_single_device():
     """3D paths under the mesh: scan-over-stencil bond sums (dynamic-slice
-    neighbor views) and the one-hot MXU wall mirror, sharded along z."""
+    neighbor views) and the one-hot matmul wall mirror, sharded along z."""
     from pd_mg_pin_corrosion_tpu import boundary as bc
 
     cfg = Config()
